@@ -1,0 +1,82 @@
+"""Communication accounting and the counted device-to-host fetch.
+
+Port of ``repro/core/metrics.py``.  Totals accumulate as exact Python-int
+bits (``charge_uplink_bits``); the byte views divide by 8 on read.  Every
+blocking device-to-host transfer of the round loop goes through
+:func:`host_fetch`, which counts it: the loop engine makes one per round
+plus one per eval.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+__all__ = ["CommLedger", "host_fetch", "host_sync_count", "reset_host_sync_count"]
+
+_HOST_SYNCS = 0
+
+
+def host_fetch(x: torch.Tensor) -> np.ndarray:
+    """Copy a tensor to host numpy (one ``.cpu()``), counting the sync."""
+    global _HOST_SYNCS
+    _HOST_SYNCS += 1
+    return x.detach().cpu().numpy()
+
+
+def host_sync_count() -> int:
+    return _HOST_SYNCS
+
+
+def reset_host_sync_count() -> None:
+    global _HOST_SYNCS
+    _HOST_SYNCS = 0
+
+
+@dataclass
+class CommLedger:
+    uplink_bits: int = 0
+    downlink_bits: int = 0
+    per_round_uplink_bits: List[int] = field(default_factory=list)
+    per_group_bits: Dict[str, int] = field(default_factory=dict)
+
+    def begin_round(self) -> None:
+        self.per_round_uplink_bits.append(0)
+
+    def charge_uplink_bits(self, bits: int, group: str = "_",
+                           round_idx: int | None = None) -> None:
+        """Charge exact integer ``bits`` of uplink, to round ``round_idx``
+        (default: the round begun last)."""
+        bits = int(bits)
+        self.uplink_bits += bits
+        if round_idx is not None:
+            if not 0 <= round_idx < len(self.per_round_uplink_bits):
+                raise IndexError(
+                    f"charge_uplink round_idx={round_idx} but only "
+                    f"{len(self.per_round_uplink_bits)} rounds begun")
+            self.per_round_uplink_bits[round_idx] += bits
+        elif self.per_round_uplink_bits:
+            self.per_round_uplink_bits[-1] += bits
+        self.per_group_bits[group] = self.per_group_bits.get(group, 0) + bits
+
+    def charge_downlink_bits(self, bits: int) -> None:
+        self.downlink_bits += int(bits)
+
+    @property
+    def uplink_total(self) -> float:
+        return self.uplink_bits / 8
+
+    @property
+    def downlink_total(self) -> float:
+        return self.downlink_bits / 8
+
+    @property
+    def per_round_uplink(self) -> List[float]:
+        return [b / 8 for b in self.per_round_uplink_bits]
+
+    @property
+    def rounds(self) -> int:
+        return len(self.per_round_uplink_bits)

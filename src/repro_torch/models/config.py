@@ -1,0 +1,80 @@
+"""Architecture configuration dataclass.
+
+A copy of ``repro/models/config.py::ArchConfig`` (importing the reference's
+would pull in jax through ``repro/models/__init__.py``).  The fields are the
+reference's, so a config built for one package reads the same in the
+other; the port's model implements the dense family.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+__all__ = ["ArchConfig"]
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                # 0 -> d_model // n_heads
+
+    # --- MoE ---------------------------------------------------------------
+    n_experts: int = 0
+    experts_per_tok: int = 0
+    capacity_factor: float = 1.25
+
+    # --- attention pattern --------------------------------------------------
+    sliding_window: int = 0          # 0 = full attention
+    layer_pattern: Tuple[str, ...] = ()
+
+    # --- positions ----------------------------------------------------------
+    pos_type: str = "rope"           # rope | mrope | none | learned
+    rope_theta: float = 10000.0
+
+    # --- encoder-decoder / vlm / ssm / hybrid -------------------------------
+    encoder_layers: int = 0
+    encoder_seq: int = 1500
+    vision_tokens: int = 0
+    rwkv_head_dim: int = 64
+    time_decay_extra_dim: int = 64
+    d_rnn: int = 0
+    conv_width: int = 4
+
+    norm_eps: float = 1e-6
+    scale_embed: bool = False        # gemma-style sqrt(d) embedding scaling
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    remat: bool = True               # activation-checkpoint each layer
+    attn_chunk: int = 1024           # query chunk for memory-bounded attention
+    scan_chunk: int = 256
+    scan_unroll: int = 1
+    attn_unroll: bool = False
+    ce_chunk: int = 512              # sequence chunk of the vocab cross-entropy
+    moe_stop_gradient_dispatch: bool = False
+    pad_vocab_multiple: int = 0      # pad embed/head vocab to this multiple
+    moe_group: int = 4096
+    gqa_native: bool = False
+    grad_accum_override: int = 0
+    source: str = ""                 # citation for the exact config
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def pattern(self) -> Tuple[str, ...]:
+        return self.layer_pattern or ("global",)
+
+    def layer_kinds(self, n: int | None = None) -> Tuple[str, ...]:
+        """Expand the repeating pattern over n layers."""
+        n = n or self.n_layers
+        pat = self.pattern
+        return tuple(pat[i % len(pat)] for i in range(n))
