@@ -8,7 +8,7 @@ toolkit.  Phases, each printing its own lines; any failure raises and the
 script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
-2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` with nvcc;
+2. build: compile ``src/repro_torch/kernels/csrc/gradestc.cu`` with nvcc;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    at the main path's shapes (and a ragged one), ``||diff||_F <= 1e-5
    ||G||_F`` and the exact M = 0 case; CUDA-event times (median of 20
@@ -16,7 +16,10 @@ script exits non-zero:
    beside the data-sheet bound;
 4. slice: ``run_fl`` (loop engine) at TinyLlama-1.1B width, cut to 2
    layers and a 4096 vocab, for gradestc then fedavg; launch counts,
-   uplink bits, eval loss, ms/round and peak memory;
+   uplink bits, eval loss, ms/round and peak memory; every host sync of
+   each run (torch's sync debug mode), by the port's source line that made
+   it: only ``host_fetch`` (one per round and per eval) and cuSOLVER's
+   error checks in ``core/rsvd.py`` may sync;
 5. card vs CPU: a small config through the port on both; per-round uplink
    equal, eval loss within the CPU parity tests' tolerance.
 
@@ -32,6 +35,7 @@ result.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -39,6 +43,8 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 from pathlib import Path
 
 import torch
@@ -76,6 +82,38 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+class SyncCounter:
+    """Counts the card's host syncs inside the ``with`` block, keyed by the
+    innermost line of the port (``src/repro_torch``) on the stack: torch's
+    sync debug mode in "warn" raises one warning per synchronizing call."""
+
+    def __enter__(self):
+        self.sites = collections.Counter()
+        self._cw = warnings.catch_warnings()
+        self._cw.__enter__()
+        warnings.simplefilter("always")
+        self._show = warnings.showwarning
+        warnings.showwarning = self._on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._cw.__exit__(*exc)
+        return False
+
+    def _on_warning(self, message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            return self._show(message, category, filename, lineno, file, line)
+        src = ROOT / "src"
+        site = f"{filename}:{lineno}"
+        for fr in reversed(traceback.extract_stack()):
+            if "repro_torch" in fr.filename:
+                site = f"{Path(fr.filename).resolve().relative_to(src)}:{fr.lineno}"
+                break
+        self.sites[site] += 1
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -158,6 +196,21 @@ def phase_kernels(shapes, group_counts):
     return tot, bound_by
 
 
+def check_syncs(method: str, sites, fetches: int, expect_fetches: int) -> None:
+    """Print a run's host syncs by site; fail unless ``host_fetch`` made
+    exactly its counted fetches and every other sync is cuSOLVER's error
+    check in ``core/rsvd.py`` (gradestc only)."""
+    fetch_syncs = sum(n for s, n in sites.items() if s.startswith("repro_torch/core/metrics.py"))
+    other = {s: n for s, n in sites.items() if not s.startswith("repro_torch/core/metrics.py")}
+    log("syncs", f"{method}: {sum(sites.values())} host syncs: host_fetch {fetch_syncs} "
+                 f"(counted {fetches}, expected {expect_fetches}); others {dict(sorted(other.items()))}")
+    allowed = ("repro_torch/core/rsvd.py",) if method == "gradestc" else ()
+    bad = {s: n for s, n in other.items() if not s.startswith(allowed)}
+    if fetch_syncs != fetches or fetches != expect_fetches or bad:
+        raise AssertionError(f"{method}: unexpected host syncs {bad}, host_fetch "
+                             f"{fetch_syncs}/{fetches}/{expect_fetches}")
+
+
 def run_slice(method: str, arch, device: str, progress=None, **kw):
     from repro_torch.fl.simulation import FLConfig, run_fl
 
@@ -222,14 +275,14 @@ def main() -> int:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    _build.build_all()
+    _build.load()
     log("build", f"built in {time.perf_counter() - t0:.2f} s into {_build.last_build['dir']}")
-    for name, text in _build.last_build.get("log", {}).items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log("build", f"{name}: {line.strip()}")
+    for line in _build.last_build["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            log("build", line.strip())
 
     # ---- 3. kernels, at the shapes the slice gives them
+    from repro_torch.core import metrics
     from repro_torch.core.policy import make_policy
     from repro_torch.models import model
 
@@ -258,10 +311,14 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         gradestc_encode.reset_launch_count()
         gradestc_decode.reset_launch_count()
-        res = run_slice(method, arch, "cuda", **kw)
-        torch.cuda.synchronize()
+        metrics.reset_host_sync_count()
+        with SyncCounter() as syncs:
+            res = run_slice(method, arch, "cuda", **kw)
+            torch.cuda.synchronize()
         launches[method] = (gradestc_encode.launch_count(), gradestc_decode.launch_count())
         runs[method] = res
+        check_syncs(method, syncs.sites, metrics.host_sync_count(),
+                    rounds + len(res.eval_rounds))
         ms_round = 1e3 * statistics.mean(res.extra["round_wall_s"][1:])
         log("slice", f"{method}: ms/round(rounds 1-2) {ms_round:.1f} "
                      f"uplink bytes {res.ledger.uplink_total:.0f} per-round "

@@ -17,8 +17,9 @@ import torch
 __all__ = ["params_from_jax"]
 
 
-def params_from_jax(tree: Any, device="cpu", prefix: str = "") -> Dict[str, torch.Tensor]:
-    """Flatten a nested dict of numpy arrays into ``{path: tensor}``."""
+def params_from_jax(tree: Any, device="cuda", prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Flatten a nested dict of numpy arrays into ``{path: tensor}`` on
+    ``device`` (the card unless the caller asks for the CPU)."""
     out: Dict[str, torch.Tensor] = {}
     for name, node in tree.items():
         path = f"{prefix}{name}"

@@ -31,15 +31,16 @@ SERVER_CLIENT_ID = 0xFFFFFFFF
 
 
 def client_layer_keys(seed: int, client: int, path_idx: int, L: int,
-                      device="cpu") -> torch.Tensor:
+                      device="cuda") -> torch.Tensor:
     """Per-(client, group) rSVD key stack ``(L, 2)``, one key per layer."""
     base = prng.fold_in(prng.fold_in(prng.PRNGKey(seed, device), client & 0xFFFFFFFF),
                         path_idx)
     return prng.split(base, L)
 
 
-def round_base_key(seed: int, rnd: int, device="cpu") -> torch.Tensor:
-    """Per-round base for codec randomness (quantizer draws)."""
+def round_base_key(seed: int, rnd: int, device="cuda") -> torch.Tensor:
+    """Per-round base for codec randomness (the quantizers' draws; neither
+    codec this slice runs takes one)."""
     return prng.fold_in(prng.PRNGKey(seed + 0x5EED, device), rnd)
 
 
@@ -52,10 +53,10 @@ class Codec:
     def __init__(self, path_idx: int = 0):
         self.path_idx = path_idx
 
-    def init_client_state(self, n_clients: int, device="cpu"):
+    def init_client_state(self, n_clients: int, device="cuda"):
         return ()
 
-    def init_shared_state(self, device="cpu"):
+    def init_shared_state(self, device="cuda"):
         return ()
 
     def to_wire(self, delta: torch.Tensor) -> torch.Tensor:
@@ -65,7 +66,9 @@ class Codec:
         return wire.reshape(shape)
 
     def encode(self, cstate, shared, key, wire):
-        """-> (cstate', recon_wire, stats int32 (client_stats_len,))."""
+        """-> (cstate', recon_wire, stats int32 (client_stats_len,)).  ``key``
+        is the client's draw key for codecs that sample; GradESTC draws from
+        its state's keys and the loop engine passes ``None``."""
         raise NotImplementedError
 
     def reduce_stats(self, stats: torch.Tensor) -> torch.Tensor:
@@ -73,9 +76,6 @@ class Codec:
 
     def update_shared(self, shared, reduced_stats, mean_wire):
         return shared
-
-    def per_client_key(self, base_key: torch.Tensor, client: int) -> torch.Tensor:
-        return prng.fold_in(prng.fold_in(base_key, client), self.path_idx)
 
     def charge_bits(self, reduced: np.ndarray, n_sel: int) -> int:
         raise NotImplementedError
@@ -144,7 +144,7 @@ class GradESTCCodec(_MatrixCodec):
         self.alpha, self.beta = float(alpha), float(beta)
         self.wire_dtype = wire_dtype
 
-    def init_client_state(self, n_clients: int, device="cpu"):
+    def init_client_state(self, n_clients: int, device="cuda"):
         plan = self.plan
         L, l, k = plan.stack, plan.l, plan.k
         keys = torch.stack([client_layer_keys(self.seed, c, self.path_idx, L, device)
@@ -153,8 +153,8 @@ class GradESTCCodec(_MatrixCodec):
                 keys,
                 torch.zeros((n_clients, L), dtype=torch.bool, device=device))
 
-    def init_shared_state(self, device="cpu"):
-        return torch.tensor(max(1, self.plan.k // 4), dtype=torch.int32, device=device)
+    def init_shared_state(self, device="cuda"):
+        return torch.full((), max(1, self.plan.k // 4), dtype=torch.int32, device=device)
 
     def encode(self, cstate, shared, key, wire):
         plan = self.plan

@@ -88,15 +88,13 @@ def compress_step(
     A, E = ops.encode(M.contiguous(), G)
 
     # --- rank-padded candidates: always sketch at d_max, mask the tail
-    d_t = torch.as_tensor(d, dtype=torch.int32, device=dev)
-    d_eff = torch.where(init, torch.tensor(d_max, dtype=torch.int32, device=dev), d_t)
+    d_eff = torch.where(init, d_max, d)
     Me, Se, Vte = randomized_svd(sub, E, rank=d_max)       # (..., l, d_max)
     Ae = Se[..., :, None] * Vte                             # (..., d_max, m)
 
-    neg = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
-    R_old = torch.where(init[..., None], neg, (A.float() ** 2).sum(-1))
+    R_old = torch.where(init[..., None], float("-inf"), (A.float() ** 2).sum(-1))
     valid = torch.arange(d_max, device=dev) < d_eff[..., None]
-    R_new = torch.where(valid, (Ae.float() ** 2).sum(-1), neg)
+    R_new = torch.where(valid, (Ae.float() ** 2).sum(-1), float("-inf"))
     R = torch.cat([R_old, R_new], dim=-1)                   # (..., k + d_max)
 
     top_idx = torch.sort(R, dim=-1, descending=True, stable=True).indices[..., :k]
@@ -138,9 +136,9 @@ def reconstruct(M: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
 def next_candidate_count(d_r: torch.Tensor, k: int, alpha: float = 1.3,
                          beta: float = 1.0) -> torch.Tensor:
     """Formula 13 on the device: ``d* = clip(ceil(alpha*d_r + beta), 1, k)``
-    in f32 arithmetic, as the reference's ``next_candidate_count_jax``."""
-    f32 = dict(dtype=torch.float32, device=d_r.device)
-    d = torch.ceil(torch.tensor(alpha, **f32) * d_r.float() + torch.tensor(beta, **f32))
+    in f32 arithmetic, as the reference's ``next_candidate_count_jax`` (the
+    Python scalars are rounded to f32 by the ops)."""
+    d = torch.ceil(alpha * d_r.float() + beta)
     return d.to(torch.int32).clamp(1, k)
 
 

@@ -8,6 +8,9 @@ selections, rSVD test matrices and initial weights:
 * a key is an integer tensor ``(..., 2)`` holding two uint32 words;
 * all arithmetic runs on int64 tensors masked to 32 bits, so one code path
   serves the CPU and CUDA;
+* constants enter as Python scalars (rounded to float32 where the
+  reference holds them in float32), never as fresh device tensors, so a
+  draw on the card makes no host-to-device copy and no stream sync;
 * ``normal`` follows the reference's transform (uniform on
   ``[nextafter(-1, 0), 1)`` through XLA's polynomial ``erf_inv``, times
   sqrt(2)), so values agree with jax to a few ulp (the tests record the
@@ -22,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 __all__ = ["PRNGKey", "fold_in", "split", "bits", "uniform", "normal",
@@ -46,16 +50,21 @@ def _threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)`` for a seed in the int32 range."""
-    return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64, device=device)
+def PRNGKey(seed: int, device="cuda") -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` for a seed in the int32 range, on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    key = torch.tensor([0, int(seed) & _MASK], dtype=torch.int64)
+    return key.to(device, non_blocking=True)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
-    """``jax.random.fold_in``; ``data`` is an int or an integer tensor that
-    broadcasts against the key's batch shape."""
+    """``jax.random.fold_in``; ``data`` is an int or an integer tensor on the
+    key's device that broadcasts against the key's batch shape."""
     k0, k1 = key[..., 0], key[..., 1]
-    d = torch.as_tensor(data, device=key.device).to(torch.int64) & _MASK
+    if isinstance(data, torch.Tensor):
+        d = data.to(torch.int64) & _MASK
+    else:
+        d = torch.full_like(k0, int(data) & _MASK)
     d, k0, k1 = torch.broadcast_tensors(d, k0, k1)
     o0, o1 = _threefry2x32(k0, k1, torch.zeros_like(d), d)
     return torch.stack([o0, o1], dim=-1)
@@ -82,19 +91,21 @@ def bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     return (b0 ^ b1).reshape(*lead, *shape)
 
 
-def _f32(x: float, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+def _r32(x: float) -> float:
+    """``x`` rounded to the nearest float32, as a Python float: in an op on
+    a float32 tensor it acts as the reference's float32 constant."""
+    return float(np.float32(x))
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: 23 random mantissa bits under a
     fixed exponent, then scaled to ``[minval, maxval)``."""
-    dev = key.device
     fb = (bits(key, shape) >> 9) | 0x3F800000
-    floats = fb.to(torch.int32).view(torch.float32) - _f32(1.0, dev)
-    lo, hi = _f32(minval, dev), _f32(maxval, dev)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    floats = fb.to(torch.int32).view(torch.float32) - 1.0
+    lo = _r32(minval)
+    span = float(np.float32(maxval) - np.float32(minval))   # float32 subtraction
+    return (floats * span + lo).clamp_min(lo)
 
 
 # XLA's single-precision erf_inv (Giles' approximation), as the reference's
@@ -107,11 +118,15 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                0.00943887047, 1.00167406, 2.83297682)
 
 
-def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
-    """float32 fused multiply-add: the f32 product is exact in float64, so
+def _f64(v):
+    return v.double() if isinstance(v, torch.Tensor) else v
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """float32 fused multiply-add of float32 tensors or float32-exact Python
+    floats (at least one a tensor): the f32 product is exact in float64, so
     one rounding of the float64 sum to f32 gives the fused result."""
-    return (a.double() * torch.as_tensor(b).double()
-            + torch.as_tensor(c).double()).float()
+    return (_f64(a) * _f64(b) + _f64(c)).float()
 
 
 # XLA's log1p below sqrt(2) - 1 in magnitude: Cephes' rational function.
@@ -127,41 +142,37 @@ _LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
 def _log1p_f32(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 log1p: Cephes' rational form for small |x| (exact to
     the reference), ``log(1 + x)`` above it (within 1 ulp of XLA's log)."""
-    dev = x.device
 
     def poly(cs):
         p = torch.full_like(x, cs[0])
         for c in cs[1:]:
-            p = _fma(p, x, _f32(c, dev))
+            p = _fma(p, x, _r32(c))
         return p
 
     x2 = x * x
     small = (x * x2) * (poly(_LOG1P_NUM) / poly(_LOG1P_DEN))
-    small = x + _fma(_f32(-0.5, dev), x2, small)
-    return torch.where(x.abs() < 0.41421356237309504880, small,
-                       torch.log(x + _f32(1.0, dev)))
+    small = x + _fma(-0.5, x2, small)
+    return torch.where(x.abs() < 0.41421356237309504880, small, torch.log(x + 1.0))
 
 
 def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     """erf^-1 on float32 with XLA's polynomial, so draws follow the
     reference's rounding rather than the local libm's.  XLA contracts each
     Horner step into one fused multiply-add, and so does this."""
-    dev = x.device
     w = -_log1p_f32(x * -x)
     lt = w < 5.0
-    w = torch.where(lt, w - _f32(2.5, dev), torch.sqrt(w) - _f32(3.0, dev))
-    p = torch.where(lt, _f32(_ERFINV_LT5[0], dev), _f32(_ERFINV_GE5[0], dev))
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _r32(_ERFINV_LT5[0]), _r32(_ERFINV_GE5[0]))
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        p = _fma(p, w, torch.where(lt, _f32(a, dev), _f32(b, dev)))
+        p = _fma(p, w, torch.where(lt, _r32(a), _r32(b)))
     out = p * x
     return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max, out)
 
 
 def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.normal`` in float32."""
-    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
-    u = uniform(key, shape, lo, 1.0)
-    return _f32(math.sqrt(2.0), key.device) * erfinv_f32(u)
+    u = uniform(key, shape, float(np.nextafter(np.float32(-1.0), np.float32(0.0))), 1.0)
+    return _r32(math.sqrt(2.0)) * erfinv_f32(u)
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -93,7 +93,7 @@ def build_codecs(method, policy: CompressionPolicy, group_paths) -> Dict[str, Co
     return out
 
 
-def pack_round_stats(reds: Dict[str, torch.Tensor], device="cpu") -> torch.Tensor:
+def pack_round_stats(reds: Dict[str, torch.Tensor], device="cuda") -> torch.Tensor:
     """The round's packed int32 stats vector (reduced stats per sorted
     uplink path); a stats-free round ships one placeholder."""
     parts = [reds[p] for p in sorted(reds)]

@@ -23,7 +23,6 @@ import numpy as np
 import torch
 
 from ..core import prng
-from ..core.codecs import round_base_key
 from ..core.metrics import CommLedger, host_fetch
 from ..core.policy import make_policy
 from ..data import client_batch_stream, make_task
@@ -38,8 +37,9 @@ __all__ = ["FLConfig", "FLResult", "run_fl", "default_tiny_arch",
 
 def select_round_clients(seed: int, rnd: int, n_clients: int, n_sel: int) -> List[int]:
     """The round's selected client ids, sorted: a pure function of
-    ``(seed, round)`` through the reference's ``fold_in`` chain."""
-    key = prng.fold_in(prng.PRNGKey(seed + 0xC11E47), rnd)
+    ``(seed, round)`` through the reference's ``fold_in`` chain, drawn on
+    the host."""
+    key = prng.fold_in(prng.PRNGKey(seed + 0xC11E47, "cpu"), rnd)
     perm = prng.permutation(key, n_clients)
     return sorted(int(c) for c in perm[:n_sel])
 
@@ -143,7 +143,10 @@ class _RunSetup:
 
 
 def _stack_batches(bs, device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.stack([b[k] for b in bs])).to(device) for k in bs[0]}
+    # non_blocking: the copy is staged at once and the host does not wait
+    # for the stream (a blocking copy would sync the device)
+    return {k: torch.from_numpy(np.stack([b[k] for b in bs])).to(device, non_blocking=True)
+            for k in bs[0]}
 
 
 def _setup_run(cfg: FLConfig) -> _RunSetup:
@@ -203,13 +206,15 @@ def _run_fl_loop(cfg: FLConfig, progress=None) -> FLResult:
     shared = {p: c.init_shared_state(dev) for p, c in codecs.items()}
     local_train = make_local_train(su.arch, cfg.lr)
 
+    # the mean's divisor lives on the device: CUDA turns division by a host
+    # scalar into a reciprocal multiply, which rounds differently
+    n_sel_t = torch.full((), n_sel, dtype=torch.float32, device=dev)
     res = FLResult([], [], [], [], ledger, 0.0)
     round_wall = []
     for rnd in range(cfg.rounds):
         t_round = time.perf_counter()
         ledger.begin_round()
         sel = select_round_clients(cfg.seed, rnd, C, n_sel)
-        base_key = round_base_key(cfg.seed, rnd)   # host-side: GradESTC ignores it
 
         raw_acc: Dict[str, torch.Tensor] = {}
         wire_acc: Dict[str, torch.Tensor] = {}
@@ -225,8 +230,9 @@ def _run_fl_loop(cfg: FLConfig, progress=None) -> FLResult:
                     raw_acc[path] = delta if path not in raw_acc else raw_acc[path] + delta
                     continue
                 cst = tuple(x[c] for x in cstate[path])
-                cst2, rw, stats = codec.encode(cst, shared[path],
-                                               codec.per_client_key(base_key, c),
+                # no key: GradESTC draws from its own state's keys, and the
+                # codecs that take the round's key are not ported (ROADMAP A9)
+                cst2, rw, stats = codec.encode(cst, shared[path], None,
                                                codec.to_wire(delta))
                 for x, u in zip(cstate[path], cst2):   # in place: one slot per client
                     x[c] = u
@@ -240,10 +246,10 @@ def _run_fl_loop(cfg: FLConfig, progress=None) -> FLResult:
             codec = codecs.get(path)
             p = params[path]
             if codec is None:
-                recon_mean = raw_acc[path] / n_sel
+                recon_mean = raw_acc[path] / n_sel_t
             else:
                 reds[path] = codec.reduce_stats(torch.stack(stats_rows[path]))
-                mean_wire = wire_acc[path] / n_sel
+                mean_wire = wire_acc[path] / n_sel_t
                 shared[path] = codec.update_shared(shared[path], reds[path], mean_wire)
                 recon_mean = codec.from_wire(mean_wire, p.shape).to(p.dtype)
             new_params[path] = p + (recon_mean * cfg.server_lr).to(p.dtype)

@@ -1,12 +1,12 @@
-"""Build the port's CUDA sources at first use and load them with ctypes.
+"""Build the port's CUDA source at first use and load it with ctypes.
 
-Each ``csrc/*.cu`` file compiles on its own (all ``nvcc`` processes start
-together) into a shared library with a plain C interface:
+``csrc/gradestc.cu`` compiles into a shared library with a plain C
+interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o lib<name>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o libgradestc.so csrc/gradestc.cu
 
-The libraries land in ``build/repro_torch_kernels/<hash>/`` under the
+The library lands in ``build/repro_torch_kernels/<hash>/`` under the
 repository root, keyed by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads at once.  Nothing here runs at
 import time: the CPU tests import every module without a CUDA toolkit.
@@ -21,27 +21,26 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
-__all__ = ["load", "build_all", "BUILD_ROOT", "NVCC_FLAGS", "last_build"]
+__all__ = ["load", "BUILD_ROOT", "NVCC_FLAGS", "last_build"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "gradestc.cu"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C signatures of every entry point, by library name.
-SIGNATURES = {
-    "gradestc": {
-        "gradestc_encode_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "gradestc_decode_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-    },
+#: C signatures of the library's entry points
+_SIGNATURES = {
+    "gradestc_encode_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gradestc_decode_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
-#: what the last build did: {"seconds": float, "dir": str, "log": {name: text}}
+_LIB: Optional[ctypes.CDLL] = None
+#: what the last build did: {"seconds": float, "dir": str, "log": str}
 last_build: Dict[str, object] = {}
 
 
@@ -62,43 +61,30 @@ def _build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build_all() -> Dict[str, ctypes.CDLL]:
-    """Compile every missing ``csrc/*.cu`` in parallel, then load them all."""
+def load() -> ctypes.CDLL:
+    """The kernels' library, compiled from ``csrc/gradestc.cu`` unless this
+    build of the sources exists, then loaded once per process."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
     out = _build_dir()
-    out.mkdir(parents=True, exist_ok=True)
+    so = out / "libgradestc.so"
     t0 = time.perf_counter()
-    procs = {}
-    for src in sorted(CSRC.glob("*.cu")):
-        so = out / f"lib{src.stem}.so"
-        if so.exists():
-            continue
-        tmp = out / f"lib{src.stem}.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs[src.stem] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, so)
-    logs = {}
-    for name, (proc, tmp, so) in procs.items():
-        log, _ = proc.communicate()
-        logs[name] = log
-        (out / f"{name}.nvcc.log").write_text(log)
+    log = ""
+    if not so.exists():
+        out.mkdir(parents=True, exist_ok=True)
+        tmp = out / f"libgradestc.{os.getpid()}.so"
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log = proc.stdout
+        (out / "gradestc.nvcc.log").write_text(log)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+            raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{log}")
         os.replace(tmp, so)       # atomic: concurrent builds agree
-    last_build.update(seconds=time.perf_counter() - t0, dir=str(out), log=logs)
-    for src in sorted(CSRC.glob("*.cu")):
-        if src.stem not in _LIBS:
-            lib = ctypes.CDLL(str(out / f"lib{src.stem}.so"))
-            for fn, argtypes in SIGNATURES.get(src.stem, {}).items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            _LIBS[src.stem] = lib
-    return dict(_LIBS)
-
-
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu`` (building at first
-    use)."""
-    if name not in _LIBS:
-        build_all()
-    return _LIBS[name]
+    last_build.update(seconds=time.perf_counter() - t0, dir=str(out), log=log)
+    lib = ctypes.CDLL(str(so))
+    for fn, argtypes in _SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    _LIB = lib
+    return lib

@@ -41,7 +41,7 @@ def decode(M: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     out = torch.empty((L, l, m), dtype=M.dtype, device=M.device)
     if L * l * m == 0:
         return out
-    lib = _build.load("gradestc")
+    lib = _build.load()
     with torch.cuda.device(M.device):
         stream = torch.cuda.current_stream(M.device).cuda_stream
         rc = lib.gradestc_decode_f32(M.data_ptr(), A.data_ptr(), out.data_ptr(),

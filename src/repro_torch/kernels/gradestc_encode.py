@@ -60,7 +60,7 @@ def encode(M: torch.Tensor, G: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     E = torch.empty_like(G)
     if L * l * m == 0:
         return A.zero_(), E
-    lib = _build.load("gradestc")
+    lib = _build.load()
     with torch.cuda.device(M.device):
         stream = torch.cuda.current_stream(M.device).cuda_stream
         rc = lib.gradestc_encode_f32(M.data_ptr(), G.data_ptr(), A.data_ptr(),

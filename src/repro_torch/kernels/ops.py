@@ -5,10 +5,10 @@ to the plain version in ``ref``; a CUDA tensor goes to the hand-written
 kernel, or the call raises.  There is no fall-back on the card: a shape or
 dtype the kernel does not take is an error, not a silent plain path.
 
-Both accept one matrix ``(l, k)``/``(l, m)`` or a stack ``(L, l, k)``/
-``(L, l, m)``; a stack is one kernel launch.  The kernels tile l in shared
-memory and mask the ragged m edge, so the reference's VMEM fit rule
-(``choose_block_m``) and column padding have no counterpart here.
+On the card the operands are stacks ``(L, l, k)``/``(L, l, m)``, one kernel
+launch per stack (the CPU path also takes single matrices).  The kernels
+tile l in shared memory and mask the ragged m edge, so the reference's VMEM
+fit rule (``choose_block_m``) and column padding have no counterpart here.
 """
 
 from __future__ import annotations
@@ -35,9 +35,6 @@ def encode(M: torch.Tensor, G: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     """Fused A = M^T G, E = G - M A."""
     if _route(M, G) == "cpu":
         return ref.encode_ref(M, G)
-    if M.dim() == 2:
-        A, E = gradestc_encode.encode(M[None], G[None])
-        return A[0], E[0]
     return gradestc_encode.encode(M, G)
 
 
@@ -45,6 +42,4 @@ def decode(M: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     """Ghat = M A."""
     if _route(M, A) == "cpu":
         return ref.decode_ref(M, A)
-    if M.dim() == 2:
-        return gradestc_decode.decode(M[None], A[None])[0]
     return gradestc_decode.decode(M, A)

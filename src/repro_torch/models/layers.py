@@ -29,8 +29,11 @@ def rope_table(positions: torch.Tensor, head_dim: int,
                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables ``(..., S, head_dim//2)`` in f32 for int positions."""
     half = head_dim // 2
-    exps = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), exps)
+    f32 = dict(dtype=torch.float32, device=positions.device)
+    # the divisor lives on the device: CUDA turns division by a host scalar
+    # into a reciprocal multiply, which rounds differently from the reference
+    exps = -torch.arange(0, half, **f32) / torch.full((), half, **f32)
+    freqs = torch.pow(float(theta), exps)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
@@ -82,7 +85,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, Sq, H, hd = q.shape
     Skv = k.shape[1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
-    scale_t = torch.tensor(scale, dtype=q.dtype, device=q.device)
+    scale_t = torch.tensor(scale, dtype=q.dtype)     # 0-dim on the host: no device copy
 
     def blk(qb: torch.Tensor, off: int) -> torch.Tensor:
         s = torch.einsum("bqhd,bkhd->bhqk", qb * scale_t, k).float()

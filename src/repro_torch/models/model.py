@@ -48,4 +48,5 @@ def loss_fn(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor]) -> torch.Te
         logz = torch.logsumexp(logits, dim=-1)
         gold = (logits * F.one_hot(labels[:, c0:c0 + cs], V).to(logits.dtype)).sum(-1)
         total = total + (logz - gold).sum()
-    return total / (B * S)
+    # a device divisor: true division, as the reference (see layers.rope_table)
+    return total / torch.full((), B * S, dtype=torch.float32, device=total.device)

@@ -51,12 +51,15 @@ def padded_vocab(cfg: ArchConfig) -> int:
 def _scaled_normal(key: torch.Tensor, shape, dt, mul: float = 1.0,
                    div: float = 1.0) -> torch.Tensor:
     """``normal(key, shape) * mul`` or ``/ div`` in the model dtype, with the
-    scalar rounded to that dtype first (the reference's weak-typed scalar)."""
+    scalar rounded to that dtype first (the reference's weak-typed scalar).
+    Neither scalar is copied to the device: the factor is a 0-dim host
+    tensor, the divisor is filled on the device (CUDA turns division by a
+    host scalar into a reciprocal multiply, which rounds differently)."""
     x = prng.normal(key, shape).to(dt)
     if mul != 1.0:
-        x = x * torch.tensor(mul, dtype=dt, device=key.device)
+        x = x * torch.tensor(mul, dtype=dt)
     if div != 1.0:
-        x = x / torch.tensor(div, dtype=dt, device=key.device)
+        x = x / torch.full((), div, dtype=dt, device=x.device)
     return x
 
 
@@ -115,7 +118,7 @@ def forward_hidden(cfg: ArchConfig, params: Params,
     dt = _dtype(cfg)
     x = params["embed"][tokens.long()].to(dt)
     if cfg.scale_embed:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt, device=x.device)
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     for i, kind in enumerate(cfg.layer_kinds()):

@@ -30,8 +30,8 @@ def sgd(lr: float):
     def update(grads: Params, state: OptState, params: Params) -> Tuple[Params, OptState]:
         new = {}
         for name, p in params.items():
-            lr_t = torch.tensor(lr, dtype=torch.float32, device=p.device)
-            new[name] = (p.float() - lr_t * grads[name].float()).to(p.dtype)
+            # a Python scalar: the op rounds it to f32, with no device copy
+            new[name] = (p.float() - lr * grads[name].float()).to(p.dtype)
         return new, OptState(step=state.step + 1, slots=None)
 
     return init, update

@@ -53,9 +53,9 @@ def test_codec_two_rounds_exact_accounting():
     jc = jcodecs.GradESTCCodec(jpol.plans[path], seed=3, path_idx=pidx)
     tc = tcodecs.GradESTCCodec(tpol.plans[path], seed=3, path_idx=pidx)
     C = 2
-    jst, tst = jc.init_client_state(C), tc.init_client_state(C)
+    jst, tst = jc.init_client_state(C), tc.init_client_state(C, "cpu")
     np.testing.assert_array_equal(np.asarray(jst[1]).astype(np.int64), tst[1].numpy())
-    jsh, tsh = jc.init_shared_state(), tc.init_shared_state()
+    jsh, tsh = jc.init_shared_state(), tc.init_shared_state("cpu")
     assert int(jsh) == int(tsh)
     jenc = jax.jit(jc.encode)
     for rnd, row in enumerate(_deltas(0, tpol.plans[path])):
@@ -105,7 +105,7 @@ def test_accountant_and_packing_exact(method):
         reds = {p: np.asarray(row, np.int32) for p in jcs}
         jpack = np.asarray(jcomp.pack_round_stats(
             {p: jnp.asarray(v) for p, v in reds.items()}, {}))
-        tpack = tcomp.pack_round_stats({p: torch.from_numpy(v) for p, v in reds.items()})
+        tpack = tcomp.pack_round_stats({p: torch.from_numpy(v) for p, v in reds.items()}, "cpu")
         np.testing.assert_array_equal(jpack, tpack.numpy())
         jled.begin_round()
         tled.begin_round()

@@ -21,8 +21,13 @@ from repro.data import client_batch_stream as j_stream, make_task as j_task  # n
 from repro.fl.simulation import default_tiny_arch as j_tiny  # noqa: E402
 from repro.models import param_group_shapes as j_groups  # noqa: E402
 from repro_torch.configs.tinyllama_1_1b import CONFIG as T_TINYLLAMA  # noqa: E402
+from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.core import codecs as tcodecs  # noqa: E402
 from repro_torch.core import metrics as tmetrics  # noqa: E402
 from repro_torch.core import policy as tpolicy  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
+from repro_torch.fl import compression as tcomp  # noqa: E402
+from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.core import reshaping as treshaping  # noqa: E402
 from repro_torch.data import client_batch_stream as t_stream, make_task as t_task  # noqa: E402
 from repro_torch.fl.simulation import default_tiny_arch as t_tiny  # noqa: E402
@@ -102,3 +107,36 @@ def test_ledger_exact_integer_bits():
     before = tmetrics.host_sync_count()
     out = tmetrics.host_fetch(torch.arange(3, dtype=torch.int32))
     assert isinstance(out, np.ndarray) and tmetrics.host_sync_count() == before + 1
+
+
+def _codec():
+    pol = tpolicy.make_policy({"w": ((256, 64), 2)}, min_params=4096)
+    return tcodecs.GradESTCCodec(pol.plans["w"], seed=0)
+
+
+#: public builders called without a device, as a user would call them
+DEFAULT_DEVICE_BUILDERS = {
+    "PRNGKey": lambda: prng.PRNGKey(0),
+    "init_params": lambda: tmodel.init_params(t_tiny(vocab=64), prng.PRNGKey(0)),
+    "client_layer_keys": lambda: tcodecs.client_layer_keys(0, 1, 2, 2),
+    "round_base_key": lambda: tcodecs.round_base_key(0, 1),
+    "init_client_state": lambda: _codec().init_client_state(2),
+    "init_shared_state": lambda: _codec().init_shared_state(),
+    "pack_round_stats": lambda: tcomp.pack_round_stats({}),
+    "params_from_jax": lambda: params_from_jax({"w": np.zeros(3, np.float32)}),
+}
+
+
+@pytest.mark.parametrize("name", list(DEFAULT_DEVICE_BUILDERS))
+def test_builders_default_to_the_card(name):
+    """Without a device argument the port builds on CUDA; with no card it
+    raises rather than landing on the CPU unnoticed."""
+    build = DEFAULT_DEVICE_BUILDERS[name]
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            build()
+        return
+    out = build()
+    leaves = list(out.values()) if isinstance(out, dict) else (
+        list(out) if isinstance(out, tuple) else [out])
+    assert leaves and all(t.device.type == "cuda" for t in leaves)

@@ -52,12 +52,12 @@ def jref():
 def test_loss_and_grads_match(jref, variant):
     params, b, jl, jg = jref
     ta = TArch(**{**ARCH, **VARIANTS[variant]})
-    tp = params_from_jax(params)
+    tp = params_from_jax(params, "cpu")
     tb = {k: torch.from_numpy(v) for k, v in b.items()}
     tl = tmodel.loss_fn(ta, tp, tb)
     tg = torch.func.grad(lambda p: tmodel.loss_fn(ta, p, tb))(tp)
     np.testing.assert_allclose(float(tl), jl, rtol=1e-5, atol=1e-6)
-    jgf = params_from_jax(jg)
+    jgf = params_from_jax(jg, "cpu")
     assert set(jgf) == set(tg)
     for name in jgf:
         np.testing.assert_allclose(tg[name].numpy(), jgf[name].numpy(),
@@ -68,16 +68,16 @@ def test_sgd_step_matches(jref):
     params, _, _, jg = jref
     j_init, j_upd = j_sgd(0.05)
     jnew, _ = j_upd(jg, j_init(params), params)
-    tp = params_from_jax(params)
+    tp = params_from_jax(params, "cpu")
     t_init, t_upd = t_sgd(0.05)
-    tnew, _ = t_upd(params_from_jax(jg), t_init(tp), tp)
-    for name, x in params_from_jax(jax.device_get(jnew)).items():
+    tnew, _ = t_upd(params_from_jax(jg, "cpu"), t_init(tp), tp)
+    for name, x in params_from_jax(jax.device_get(jnew), "cpu").items():
         np.testing.assert_array_equal(tnew[name].numpy(), x.numpy(), err_msg=name)
 
 
 def test_port_init_matches_converted_reference(jref):
-    tp = tmodel.init_params(TArch(**ARCH), prng.PRNGKey(0))
-    ref = params_from_jax(jref[0])
+    tp = tmodel.init_params(TArch(**ARCH), prng.PRNGKey(0, "cpu"))
+    ref = params_from_jax(jref[0], "cpu")
     assert {k: tuple(v.shape) for k, v in tp.items()} == {k: tuple(v.shape) for k, v in ref.items()}
     for name, x in ref.items():
         # <= 4 ulp: the normal's 3-ulp bound plus one rounding of the scale
@@ -87,7 +87,7 @@ def test_port_init_matches_converted_reference(jref):
 
 def test_param_group_shapes_cover_params(jref):
     ta = TArch(**ARCH)
-    tp = params_from_jax(jref[0])
+    tp = params_from_jax(jref[0], "cpu")
     groups = tmodel.param_group_shapes(ta)
     assert set(groups) == set(tp)
     for name, (shape, stack) in groups.items():

@@ -30,7 +30,7 @@ def _np(x):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_keys_fold_in_split_bits_exact(seed):
-    kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed, "cpu")
     np.testing.assert_array_equal(_np(kj), kt.numpy())
     for d in (0, 5, 123456789, 0xFFFFFFFF):
         np.testing.assert_array_equal(_np(jax.random.fold_in(kj, d)),
@@ -42,7 +42,7 @@ def test_keys_fold_in_split_bits_exact(seed):
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_uniform_and_permutation_exact(seed):
-    kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    kj, kt = jax.random.PRNGKey(seed), prng.PRNGKey(seed, "cpu")
     np.testing.assert_array_equal(np.asarray(jax.random.uniform(kj, (1024,))),
                                   prng.uniform(kt, (1024,)).numpy())
     for n in (1, 3, 10, 257):
@@ -66,7 +66,7 @@ def test_batched_keys_match_vmap():
 
 def test_normal_within_ulp_bound():
     a = np.asarray(jax.random.normal(jax.random.PRNGKey(3), (50000,), jnp.float32))
-    b = prng.normal(prng.PRNGKey(3), (50000,)).numpy()
+    b = prng.normal(prng.PRNGKey(3, "cpu"), (50000,)).numpy()
     ulp = np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
     assert ulp.max() <= NORMAL_ULP_BOUND
     assert (ulp > 0).mean() < 0.02
@@ -79,8 +79,8 @@ def test_round_client_selection_and_codec_keys_exact():
                 jsim.select_round_clients(0, rnd, n_clients, n_sel))]
             assert tsim.select_round_clients(0, rnd, n_clients, n_sel) == want
         np.testing.assert_array_equal(_np(jcodecs.round_base_key(5, rnd)),
-                                      tcodecs.round_base_key(5, rnd).numpy())
+                                      tcodecs.round_base_key(5, rnd, "cpu").numpy())
     for client, path_idx, L in ((0, 0, 2), (3, 4, 4), (jcodecs.SERVER_CLIENT_ID, 1, 1)):
         np.testing.assert_array_equal(
             _np(jcodecs.client_layer_keys(0, client, path_idx, L)),
-            tcodecs.client_layer_keys(0, client, path_idx, L).numpy())
+            tcodecs.client_layer_keys(0, client, path_idx, L, "cpu").numpy())
