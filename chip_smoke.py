@@ -10,18 +10,24 @@ script exits non-zero:
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
 2. build: compile ``src/repro_torch/kernels/csrc/gradestc.cu`` with nvcc;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
-   at the main path's shapes (and a ragged one), ``||diff||_F <= 1e-5
-   ||G||_F`` and the exact M = 0 case; CUDA-event times (median of 20
-   after warm-up) of the kernel, the plain version and the library call,
-   beside the data-sheet bound;
+   at the main path's shapes (and a ragged one): encode, decode,
+   encode_quant's E and decode_wire's Ghat within ``||diff||_F <= 1e-5
+   ||G||_F``, coeff_quant bit for bit, encode_quant's codes equal except
+   by one where A/scale*127 sits within 1e-4 of a half-integer, and the
+   exact M = 0 cases; CUDA-event times (median of 20 after warm-up) of the
+   kernel, the plain version and the library call, beside the data-sheet
+   bound;
 4. slice: ``run_fl`` (loop engine) at TinyLlama-1.1B width, cut to 2
-   layers and a 4096 vocab, for gradestc then fedavg; launch counts,
-   uplink bits, eval loss, ms/round and peak memory; every host sync of
-   each run (torch's sync debug mode), by the port's source line that made
-   it: only ``host_fetch`` (one per round and per eval) and cuSOLVER's
-   error checks in ``core/rsvd.py`` may sync;
-5. card vs CPU: a small config through the port on both; per-round uplink
-   equal, eval loss within the CPU parity tests' tolerance.
+   layers and a 4096 vocab, for gradestc on the f32, int8 and bf16 wires,
+   svdfed on the f32, bf16 and int8 wires, then fedavg; the counts of all
+   five kernels (set to 0 just before each run, read just after), uplink
+   bits, eval loss, ms/round and peak memory; every host sync of each run
+   (torch's sync debug mode), by the port's source line that made it: only
+   ``host_fetch`` (one per round and per eval) and cuSOLVER's error checks
+   in ``core/rsvd.py`` may sync;
+5. card vs CPU: a small config through the port on both, for every method
+   and wire of phase 4; per-round uplink equal, eval loss within the CPU
+   parity tests' tolerance.
 
 ``python3 chip_smoke.py --profile`` adds, after phase 4, a gradestc run
 whose round 1 is traced by ``torch.profiler``: the device idle share of that
@@ -56,6 +62,19 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 KERNEL_RTOL = 1e-5        # ||kernel - plain||_F <= KERNEL_RTOL * ||G||_F
 LOSS_RTOL = 1e-5          # eval-loss tolerance of the CPU parity tests
+HALF_MARGIN = 1e-4        # int8 codes may differ by one this close to x.5
+SCALE_RTOL = 1e-6         # encode_quant's scales (max |A| of its own GEMM)
+
+#: phase 4's runs: (label, method, wire_dtype)
+SLICE_RUNS = (("gradestc", "gradestc", "f32"), ("gradestc-int8", "gradestc", "int8"),
+              ("gradestc-bf16", "gradestc", "bf16"), ("svdfed", "svdfed", "f32"),
+              ("svdfed-bf16", "svdfed", "bf16"), ("svdfed-int8", "svdfed", "int8"),
+              ("fedavg", "fedavg", "f32"))
+#: the kernels each run must launch (once per group per client per round);
+#: every other kernel stays at zero
+RUN_KERNELS = {"gradestc": ("encode", "decode"), "gradestc-bf16": ("encode", "decode"),
+               "gradestc-int8": ("encode", "decode", "coeff_quant"),
+               "svdfed-int8": ("encode_quant", "decode_wire")}
 
 
 def log(phase: str, msg: str) -> None:
@@ -196,18 +215,114 @@ def phase_kernels(shapes, group_counts):
     return tot, bound_by
 
 
-def check_syncs(method: str, sites, fetches: int, expect_fetches: int) -> None:
+def code_flips(A, scales, codes, ref_codes):
+    """Codes that differ from the plain version's; raise unless each is one
+    apart where A/scale*127 lies within HALF_MARGIN of a half-integer."""
+    m = A.shape[-1]
+    x = A / scales.repeat_interleave(512, dim=-1)[..., :m] * 127.0
+    near = ((x - x.floor()).abs() - 0.5).abs() < HALF_MARGIN
+    d = (codes.long() - ref_codes.long()).abs()
+    if int(d.max()) > 1 or bool(((d > 0) & ~near).any()):
+        raise AssertionError(f"int8 codes differ beyond a rounding boundary: max {int(d.max())}")
+    return int((d > 0).sum())
+
+
+def phase_wire_kernels(shapes, group_counts):
+    """Check and time coeff_quant, encode_quant and decode_wire at each
+    (L, l, m, k); like ``phase_kernels``, numbers summed over one client's
+    round.  coeff_quant takes the coefficients A = M^T G of the shape."""
+    from repro_torch.kernels import gradestc_decode, gradestc_encode, ref, wire
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    names = ("coeff_quant", "encode_quant", "decode_wire")
+    tot = {n: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0) for n in names}
+    bound_by = {}
+    for shape in shapes:
+        L, l, m, k = shape
+        nb = -(-m // 512)
+        M = torch.linalg.qr(torch.randn(L, l, k, device="cuda", generator=gen)).Q.contiguous()
+        G = torch.randn(L, l, m, device="cuda", generator=gen) * 1e-3
+        A = torch.matmul(M.mT, G)
+        gn = float(G.norm())
+        # coeff_quant: bit for bit, and an all-zero A (scale 1e-12, codes 0)
+        q, rq = wire.coeff_quant(A), ref.coeff_quant_ref(A)
+        z = wire.coeff_quant(torch.zeros_like(A))
+        # encode_quant / decode_wire
+        codes, scales, E = gradestc_encode.encode_quant(M, G)
+        rc, rs, rE = ref.encode_quant_ref(M, G)
+        ship = ref.coeff_dequant_ref(codes, scales)
+        Ghat = gradestc_decode.decode_wire(M, codes, scales)
+        c0, s0, E0 = gradestc_encode.encode_quant(torch.zeros_like(M), G)
+        torch.cuda.synchronize()
+        cq_exact = (torch.equal(q[0], rq[0]) and torch.equal(q[1].view(torch.int32), rq[1].view(torch.int32))
+                    and torch.equal(q[2].view(torch.int32), rq[2].view(torch.int32)))
+        zero_ok = (not bool(z[0].any()) and bool((z[1] == 1e-12).all())
+                   and not bool(c0.any()) and bool((s0 == 1e-12).all()) and torch.equal(E0, G))
+        flips = code_flips(A, rs, codes, rc)
+        Ghat_ref = ref.decode_ref(M, ship)        # the plain version on the same codes
+        rel = {"E": float((E - (G - M @ ship)).norm()) / gn,
+               "Ghat": float((Ghat - Ghat_ref).norm()) / gn,
+               "scales": float(((scales - rs).abs() / rs).max())}
+        if (not cq_exact or not zero_ok or rel["E"] > KERNEL_RTOL or rel["Ghat"] > KERNEL_RTOL
+                or rel["scales"] > SCALE_RTOL):
+            raise AssertionError(f"wire kernel mismatch at {shape}: coeff_quant exact={cq_exact} "
+                                 f"M=0/A=0 exact={zero_ok} rel={rel}")
+        err = {"coeff_quant": max(float((q[2] - rq[2]).abs().max()),
+                                  float((q[0].int() - rq[0].int()).abs().max())),
+               "encode_quant": float((E - rE).abs().max()),
+               "decode_wire": float((Ghat - Ghat_ref).abs().max())}
+        log("kernels", f"L={L} l={l} m={m} k={k} coeff_quant bit-exact={cq_exact} "
+                       f"encode_quant code flips {flips} of {codes.numel()} rel_err E={rel['E']:.3e} "
+                       f"scales={rel['scales']:.3e} decode_wire rel_err Ghat={rel['Ghat']:.3e} "
+                       f"M=0 exact={zero_ok}")
+        sh = ship.contiguous()
+        t = {
+            "coeff_quant": (time_ms(lambda: wire.coeff_quant(A)),
+                            time_ms(lambda: ref.coeff_quant_ref(A)), None),
+            "encode_quant": (time_ms(lambda: gradestc_encode.encode_quant(M, G)),
+                             time_ms(lambda: ref.encode_quant_ref(M, G)),
+                             time_ms(lambda: torch.baddbmm(G, M, torch.matmul(M.mT, G), alpha=-1.0))),
+            "decode_wire": (time_ms(lambda: gradestc_decode.decode_wire(M, codes, scales)),
+                            time_ms(lambda: ref.decode_ref(M, ref.coeff_dequant_ref(codes, scales))),
+                            time_ms(lambda: torch.matmul(M, sh))),
+        }
+        n_coef, n_scale = L * k * m, L * k * nb
+        # bytes: inputs read once, outputs written once; operations: FP32,
+        # 5 per coefficient for the quantizer (div, mul, rint, clamp, mul)
+        b = {"coeff_quant": bound_ms(4 * n_coef + n_coef + 4 * n_scale + 4 * n_coef, 5 * n_coef),
+             "encode_quant": bound_ms(4 * L * (l * k + 2 * l * m) + n_coef + 4 * n_scale,
+                                      L * l * m * (4 * k + 1) + 5 * n_coef),
+             "decode_wire": bound_ms(4 * L * (l * k + l * m) + n_coef + 4 * n_scale,
+                                     2 * L * l * m * k + 2 * n_coef)}
+        for name in names:
+            ms, plain, lib = t[name]
+            bms, by = b[name]
+            bound_by[name] = by
+            w = group_counts.get(shape, 0)
+            lib_txt = "none" if lib is None else f"{lib:.4f} ms"
+            log("kernels", f"  {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library {lib_txt}, "
+                           f"bound {bms:.4f} ms ({by}), launches/client-round {w}")
+            row = tot[name]
+            row["err"] = max(row["err"], err[name])
+            row["ms"] += w * ms
+            row["plain_ms"] += w * plain
+            row["library_ms"] = None if lib is None else row["library_ms"] + w * lib
+            row["bound_ms"] += w * bms
+    return tot, bound_by
+
+
+def check_syncs(label: str, method: str, sites, fetches: int, expect_fetches: int) -> None:
     """Print a run's host syncs by site; fail unless ``host_fetch`` made
     exactly its counted fetches and every other sync is cuSOLVER's error
-    check in ``core/rsvd.py`` (gradestc only)."""
+    check in ``core/rsvd.py`` (gradestc and svdfed only)."""
     fetch_syncs = sum(n for s, n in sites.items() if s.startswith("repro_torch/core/metrics.py"))
     other = {s: n for s, n in sites.items() if not s.startswith("repro_torch/core/metrics.py")}
-    log("syncs", f"{method}: {sum(sites.values())} host syncs: host_fetch {fetch_syncs} "
+    log("syncs", f"{label}: {sum(sites.values())} host syncs: host_fetch {fetch_syncs} "
                  f"(counted {fetches}, expected {expect_fetches}); others {dict(sorted(other.items()))}")
-    allowed = ("repro_torch/core/rsvd.py",) if method == "gradestc" else ()
+    allowed = ("repro_torch/core/rsvd.py",) if method in ("gradestc", "svdfed") else ()
     bad = {s: n for s, n in other.items() if not s.startswith(allowed)}
     if fetch_syncs != fetches or fetches != expect_fetches or bad:
-        raise AssertionError(f"{method}: unexpected host syncs {bad}, host_fetch "
+        raise AssertionError(f"{label}: unexpected host syncs {bad}, host_fetch "
                              f"{fetch_syncs}/{fetches}/{expect_fetches}")
 
 
@@ -271,19 +386,20 @@ def main() -> int:
                   f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
                   f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build, gradestc_decode, gradestc_encode
+    from repro_torch.kernels import _build
 
     # ---- 2. build
     t0 = time.perf_counter()
     _build.load()
     log("build", f"built in {time.perf_counter() - t0:.2f} s into {_build.last_build['dir']}")
     for line in _build.last_build["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log("build", line.strip())
+        if "registers" in line or "spill" in line or "entry function" in line:
+            log("build", line.strip().replace("_ZN44_GLOBAL__N__", ""))
 
     # ---- 3. kernels, at the shapes the slice gives them
     from repro_torch.core import metrics
     from repro_torch.core.policy import make_policy
+    from repro_torch.kernels import ops
     from repro_torch.models import model
 
     arch = slice_arch()
@@ -296,80 +412,90 @@ def main() -> int:
             log("kernels", f"group {plan.name}: L={plan.stack} l={plan.l} m={plan.m} k={plan.k}")
     shapes = sorted(group_counts) + [(2, 1024, 500, 64)]
     tot, bound_by = phase_kernels(shapes, group_counts)
-    log("kernels", f"kernels: gradestc_encode, gradestc_decode "
-                   f"({sum(group_counts.values())} launches each per client-round)")
+    wtot, wbound_by = phase_wire_kernels(shapes, group_counts)
+    tot.update(wtot)
+    bound_by.update(wbound_by)
+    log("kernels", f"kernels: gradestc_encode, gradestc_decode, coeff_quant, encode_quant, "
+                   f"decode_wire ({sum(group_counts.values())} launches each per client-round "
+                   f"on the runs that use them)")
     log("kernels", "clocks/power after timing: "
         + nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
 
-    # ---- 4. the slice at TinyLlama width
+    # ---- 4. the slice at TinyLlama width, every method and wire
     n_clients, rounds = 4, 3
     kw = dict(n_clients=n_clients, participation=1.0, rounds=rounds, local_steps=2,
               batch=4, seq=256, eval_every=1)
+    expect = sum(group_counts.values()) * n_clients * rounds
     launches = {}
     runs = {}
-    for method in ("gradestc", "fedavg"):
+    for label, method, wire_dtype in SLICE_RUNS:
         torch.cuda.reset_peak_memory_stats()
-        gradestc_encode.reset_launch_count()
-        gradestc_decode.reset_launch_count()
+        ops.reset_launch_counts()
         metrics.reset_host_sync_count()
         with SyncCounter() as syncs:
-            res = run_slice(method, arch, "cuda", **kw)
+            res = run_slice(method, arch, "cuda", method_kw={"wire_dtype": wire_dtype}, **kw)
             torch.cuda.synchronize()
-        launches[method] = (gradestc_encode.launch_count(), gradestc_decode.launch_count())
-        runs[method] = res
-        check_syncs(method, syncs.sites, metrics.host_sync_count(),
+        launches[label] = ops.launch_counts()
+        runs[label] = res
+        check_syncs(label, method, syncs.sites, metrics.host_sync_count(),
                     rounds + len(res.eval_rounds))
         ms_round = 1e3 * statistics.mean(res.extra["round_wall_s"][1:])
-        log("slice", f"{method}: ms/round(rounds 1-2) {ms_round:.1f} "
+        log("slice", f"{label}: ms/round(rounds 1-2) {ms_round:.1f} "
                      f"uplink bytes {res.ledger.uplink_total:.0f} per-round "
                      f"{res.ledger.per_round_uplink} eval loss {res.eval_loss} "
-                     f"launches encode/decode {launches[method]} "
+                     f"launches {launches[label]} "
                      f"max_memory_allocated {torch.cuda.max_memory_allocated()} B "
                      f"wall {res.wall_s:.1f} s")
         if not all(math.isfinite(x) for x in res.eval_loss):
-            raise AssertionError(f"{method}: non-finite eval loss {res.eval_loss}")
-    expect = sum(group_counts.values()) * n_clients * rounds
-    if launches["gradestc"] != (expect, expect) or launches["fedavg"] != (0, 0):
-        raise AssertionError(f"launch counts {launches}, expected ({expect}, {expect}) / (0, 0)")
+            raise AssertionError(f"{label}: non-finite eval loss {res.eval_loss}")
+        want = {name: expect if name in RUN_KERNELS.get(label, ()) else 0 for name in ops.KERNELS}
+        if launches[label] != want:
+            raise AssertionError(f"{label}: launch counts {launches[label]}, expected {want}")
     n_params = sum(math.prod(shape) * stack
                    for shape, stack in model.param_group_shapes(arch).values())
     raw_bits = 32 * n_params * n_clients * rounds
     if n_params != 104_867_840 or runs["fedavg"].ledger.uplink_bits != raw_bits:
         raise AssertionError(f"fedavg uplink {runs['fedavg'].ledger.uplink_bits} bits, "
                              f"params {n_params}, expected {raw_bits}")
-    if not runs["gradestc"].ledger.uplink_bits < raw_bits:
-        raise AssertionError("gradestc uplink is not below fedavg's")
-    log("slice", f"gradestc/fedavg uplink = "
-                 f"{runs['gradestc'].ledger.uplink_bits / raw_bits:.4f}")
+    bits = {label: r.ledger.uplink_bits for label, r in runs.items()}
+    if not bits["gradestc-int8"] < bits["gradestc"] < raw_bits:
+        raise AssertionError(f"uplink bits do not fall int8 < f32 < fedavg: {bits}")
+    log("slice", "uplink / fedavg: " + ", ".join(
+        f"{label} {b / raw_bits:.4f}" for label, b in bits.items()))
     if profile_run:
         phase_profile(arch, kw)
 
     # ---- 5. card vs CPU at a small config, both through the port
     small = dict(rounds=3, n_clients=3, local_steps=1, batch=2, seq=16, eval_every=2)
-    for method in ("gradestc", "fedavg"):
-        gpu = run_slice(method, small_arch(), "cuda", **small)
-        cpu = run_slice(method, small_arch(), "cpu", **small)
+    for label, method, wire_dtype in SLICE_RUNS:
+        mkw = {"method_kw": {"wire_dtype": wire_dtype}}
+        gpu = run_slice(method, small_arch(), "cuda", **small, **mkw)
+        cpu = run_slice(method, small_arch(), "cpu", **small, **mkw)
         rel = max(abs(a - b) / abs(b) for a, b in zip(gpu.eval_loss, cpu.eval_loss))
-        log("parity", f"{method}: uplink/round card {gpu.ledger.per_round_uplink} "
+        log("parity", f"{label}: uplink/round card {gpu.ledger.per_round_uplink} "
                       f"cpu {cpu.ledger.per_round_uplink}; eval loss card {gpu.eval_loss} "
                       f"cpu {cpu.eval_loss} max rel diff {rel:.3e}")
         if gpu.ledger.per_round_uplink_bits != cpu.ledger.per_round_uplink_bits:
-            raise AssertionError(f"{method}: per-round uplink differs between card and CPU")
+            raise AssertionError(f"{label}: per-round uplink differs between card and CPU")
         if rel > LOSS_RTOL:
-            raise AssertionError(f"{method}: eval loss differs by {rel:.3e} > {LOSS_RTOL}")
+            raise AssertionError(f"{label}: eval loss differs by {rel:.3e} > {LOSS_RTOL}")
 
     # ---- 6. summary lines
     src = "src/repro_torch/kernels/csrc/gradestc.cu"
     rows = []
-    for name, replaces in (("encode", "src/repro/kernels/gradestc_encode.py:55"),
-                           ("decode", "src/repro/kernels/gradestc_decode.py:33")):
+    for name, row_name, replaces, run in (
+            ("encode", "gradestc_encode", "src/repro/kernels/gradestc_encode.py:55", "gradestc"),
+            ("decode", "gradestc_decode", "src/repro/kernels/gradestc_decode.py:33", "gradestc"),
+            ("coeff_quant", "coeff_quant", "src/repro/kernels/wire.py:242", "gradestc-int8"),
+            ("encode_quant", "encode_quant", "src/repro/kernels/gradestc_encode.py:121",
+             "svdfed-int8"),
+            ("decode_wire", "decode_wire", "src/repro/kernels/gradestc_decode.py:75",
+             "svdfed-int8")):
         t = tot[name]
         rows.append({
-            "name": f"gradestc_{name}", "route": "cuda", "source": src,
-            "replaces": replaces,
-            "launches": launches["gradestc"][0 if name == "encode" else 1],
-            "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": bound_by[name],
+            "name": row_name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[run][name], "max_abs_err": t["err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": bound_by[name],
             "library_ms": t["library_ms"],
         })
     print(smi)

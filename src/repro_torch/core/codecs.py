@@ -1,8 +1,9 @@
 """Stateless codec protocol: GradESTC behind the reference's codec contract.
 
-Port of ``repro/core/codecs.py`` (the parts this slice runs: the ``Codec``
-base, the ``(L, l, m)`` matrix wire layout, the f32 coefficient wire and
-``GradESTCCodec`` variant ``full``).  A codec owns its wire layout
+Port of ``repro/core/codecs.py`` (the parts the ported paths run: the
+``Codec`` base, the ``(L, l, m)`` matrix wire layout, the f32/bf16/int8
+coefficient wires, ``GradESTCCodec`` variant ``full`` and
+``SVDFedCodec``).  A codec owns its wire layout
 (``to_wire``/``from_wire``) and per-client state, and ``encode`` returns
 the new state, the server-side reconstruction in wire layout and a small
 int32 stats vector -- the only thing the host ever reads.  ``charge_bits``
@@ -19,12 +20,14 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..kernels import ops
 from . import gradestc as ge
 from . import prng
 from .policy import LayerPlan
+from .rsvd import randomized_svd
 
-__all__ = ["Codec", "GradESTCCodec", "client_layer_keys", "round_base_key",
-           "SERVER_CLIENT_ID"]
+__all__ = ["Codec", "GradESTCCodec", "SVDFedCodec", "client_layer_keys",
+           "round_base_key", "SERVER_CLIENT_ID"]
 
 #: Client id of server-side (downlink) codec instances.
 SERVER_CLIENT_ID = 0xFFFFFFFF
@@ -68,7 +71,8 @@ class Codec:
     def encode(self, cstate, shared, key, wire):
         """-> (cstate', recon_wire, stats int32 (client_stats_len,)).  ``key``
         is the client's draw key for codecs that sample; GradESTC draws from
-        its state's keys and the loop engine passes ``None``."""
+        its state's keys, SVDFed draws nothing, and the loop engine passes
+        ``None``."""
         raise NotImplementedError
 
     def reduce_stats(self, stats: torch.Tensor) -> torch.Tensor:
@@ -114,9 +118,82 @@ def _coeff_wire_bits(wire_dtype: str, k: int, m: int) -> int:
     return bits
 
 
+def _check_wire_dtype(wire_dtype: str) -> None:
+    if wire_dtype not in ops.WIRE_DTYPES:
+        raise ValueError(f"wire_dtype={wire_dtype!r}; expected one of {ops.WIRE_DTYPES}")
+
+
+class SVDFedCodec(_MatrixCodec):
+    """Globally shared per-group basis (SVDFed), round-granular refits.
+
+    The shared state is ``(M (L, l, k), key (2,), refit ())``: the server's
+    basis, the key of its refits and whether this round is a refit round.
+    Clients upload coefficients ``A = M^T G`` between refits; a refit round
+    ships raw G from every client and the server refits M from the mean.
+    If any client's relative fitting error exceeds ``gamma`` percent, the
+    next round is a refit round; round 0 is one (M starts at zero).
+
+    ``wire_dtype`` "int8" runs the fused encode_quant / decode_wire kernels
+    on the card (the residual is against the shipped coefficients); "f32"
+    and "bf16" are two GEMMs around ``ops.coeff_roundtrip``.  Stats per
+    client: ``[is_refit_round, wants_refit_next]``, max-reduced.
+    """
+
+    client_stats_len = 2
+    stats_len = 2
+
+    def __init__(self, plan: LayerPlan, gamma: float = 8.0, seed: int = 0,
+                 path_idx: int = 0, wire_dtype: str = "f32"):
+        _check_wire_dtype(wire_dtype)
+        super().__init__(plan, path_idx)
+        self.gamma = float(gamma)
+        self.seed = int(seed)
+        self.wire_dtype = wire_dtype
+
+    def init_shared_state(self, device="cuda"):
+        plan = self.plan
+        key = prng.fold_in(prng.PRNGKey(self.seed + 17, device), self.path_idx)
+        return (torch.zeros((plan.stack, plan.l, plan.k), dtype=torch.float32, device=device),
+                key, torch.ones((), dtype=torch.bool, device=device))
+
+    def encode(self, cstate, shared, key, wire):
+        M, _, refit = shared
+        if self.wire_dtype == "int8":
+            codes, scales, E = ops.encode_quant(M, wire)
+            Ghat = ops.decode_wire(M, codes, scales)
+            err = (E.float() ** 2).sum()
+        else:
+            A = ops.coeff_roundtrip(M.mT @ wire, self.wire_dtype)
+            Ghat = M @ A
+            err = ((wire - Ghat).float() ** 2).sum()
+        recon = torch.where(refit, wire, Ghat)
+        den = (wire.float() ** 2).sum().clamp_min(1e-30)
+        want = ~refit & (err > (self.gamma / 100.0) ** 2 * den)
+        return (), recon, torch.stack([refit, want]).to(torch.int32)
+
+    def reduce_stats(self, stats: torch.Tensor) -> torch.Tensor:
+        return stats.amax(0).to(torch.int32)
+
+    def update_shared(self, shared, reduced_stats, mean_wire):
+        # the reference refits under lax.cond on the device flag; here the fit
+        # runs every round and is selected on the device, so the flag never
+        # reaches the host.  The key advances every round either way.
+        M, key, refit = shared
+        key2, sub = prng.split(key, 2).unbind(-2)
+        fit = randomized_svd(prng.split(sub, self.plan.stack), mean_wire,
+                             rank=self.plan.k)[0]
+        return torch.where(refit, fit, M), key2, reduced_stats[1] > 0
+
+    def charge_bits(self, reduced, n_sel):
+        plan = self.plan
+        if int(reduced[0]):                       # refit round: raw uplink
+            return 32 * plan.raw_scalars * n_sel
+        return _coeff_wire_bits(self.wire_dtype, plan.k, plan.m) * plan.stack * n_sel
+
+
 class GradESTCCodec(_MatrixCodec):
     """The paper's spatio-temporal compressor, rank-padded (variant
-    ``full``, f32 coefficient wire).
+    ``full``; coefficient wire f32, bf16 or int8).
 
     Per-client state: basis stack ``(L, l, k)``, rSVD keys ``(L, 2)``, init
     flags ``(L,)``; the engine stacks them on a leading client axis.  The
@@ -134,10 +211,11 @@ class GradESTCCodec(_MatrixCodec):
     def __init__(self, plan: LayerPlan, seed: int = 0, path_idx: int = 0,
                  variant: str = "full", alpha: float = 1.3, beta: float = 1.0,
                  wire_dtype: str = "f32"):
-        if variant != "full" or wire_dtype != "f32":
+        if variant != "full":
             raise NotImplementedError(
-                f"GradESTC variant={variant!r} wire_dtype={wire_dtype!r}: only "
-                "variant 'full' with the f32 wire is ported (ROADMAP A9)")
+                f"GradESTC variant={variant!r}: only variant 'full' is ported "
+                "(ROADMAP A9)")
+        _check_wire_dtype(wire_dtype)
         super().__init__(plan, path_idx)
         self.seed = int(seed)
         self.variant = variant

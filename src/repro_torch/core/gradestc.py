@@ -70,12 +70,10 @@ def compress_step(
     layer projects against the zero basis (``A = 0``, ``E = G`` exactly),
     scores its old columns ``-inf`` and sketches at full capacity, so the
     init round takes this same path.  Top-k membership keeps index order on
-    ties (old vectors first), like ``jax.lax.top_k``.
+    ties (old vectors first), like ``jax.lax.top_k``.  ``wire_dtype`` ("f32",
+    "bf16" or "int8") is the coefficient wire ``A_new`` ships through
+    (``ops.coeff_roundtrip``; int8 runs the coeff_quant kernel on the card).
     """
-    if wire_dtype != "f32":
-        raise NotImplementedError(
-            f"wire_dtype={wire_dtype!r}: only the f32 coefficient wire is "
-            "ported (bf16/int8 are ROADMAP A9)")
     l, m = G.shape[-2:]
     d_max = k if d_max is None else d_max
     dev = G.device
@@ -112,6 +110,10 @@ def compress_step(
     Ae_src = torch.gather(Ae, -2, src[..., :, None].expand(*src.shape[:-1], k, m))
     M_new = torch.where(replaced[..., None, :], Me_src, M)
     A_new = torch.where(replaced[..., :, None], Ae_src, A)
+    # the coefficient wire (bf16 / int8) applies after replacement; client
+    # and server both use the shipped value, so the payload, the stats and
+    # the reconstruction see it
+    A_new = ops.coeff_roundtrip(A_new, wire_dtype)
 
     # wire buffer: entering vectors packed in rank order, zero padded; the
     # non-entering rows land in a spare row d_max that is cut off

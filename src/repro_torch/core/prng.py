@@ -13,8 +13,9 @@ selections, rSVD test matrices and initial weights:
   draw on the card makes no host-to-device copy and no stream sync;
 * ``normal`` follows the reference's transform (uniform on
   ``[nextafter(-1, 0), 1)`` through XLA's polynomial ``erf_inv``, times
-  sqrt(2)), so values agree with jax to a few ulp (the tests record the
-  bound); keys, bits, uniforms and permutations agree exactly.
+  sqrt(2)), with XLA's own f32 ``log`` and ``log1p`` mirrored in tensor
+  arithmetic (no libm on the path), so normals, like keys, bits, uniforms
+  and permutations, equal jax's bit for bit, on the CPU and on the card.
 
 Batched keys broadcast: ``fold_in``/``split``/``bits`` accept ``(..., 2)``
 keys and return one result per key.
@@ -129,6 +130,41 @@ def _fma(a, b, c) -> torch.Tensor:
     return (_f64(a) * _f64(b) + _f64(c)).float()
 
 
+# XLA's CPU float32 log: Cephes' logf as Eigen writes it (frexp into
+# [sqrt(1/2), sqrt(2)), a degree-8 polynomial in three Horner chains joined
+# over x^3, the exponent split into 0.693359375 - 2.12194440e-4), with the
+# multiply-adds LLVM contracts into fused ones.
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+_MIN_NORMAL_F32 = float(np.finfo(np.float32).tiny)
+
+
+def _log_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 log, in f32 tensor arithmetic (no libm), so the CPU
+    and the card give the same bits as the reference."""
+    p = [_r32(c) for c in _LOG_P]
+    xb = torch.where(x > _MIN_NORMAL_F32, x, _MIN_NORMAL_F32)
+    bits = xb.view(torch.int32)
+    e = ((bits >> 23) - 127).float() + 1.0
+    mant = ((bits & -0x7F800001) | 0x3F000000).view(torch.float32)   # [1/2, 1)
+    low = mant < _r32(math.sqrt(0.5))
+    e = e - low.float()
+    t = (mant - 1.0) + torch.where(low, mant, 0.0)                  # [sqrt(1/2)-1, sqrt(2)-1)
+    t2 = t * t
+    t3 = t2 * t
+    y = _fma(_fma(t, p[0], p[1]), t, p[2])
+    y1 = _fma(_fma(t, p[3], p[4]), t, p[5])
+    y2 = _fma(_fma(t, p[6], p[7]), t, p[8])
+    y = _fma(_fma(y, t3, y1), t3, y2)
+    y = _fma(y, t3, e * _r32(_LOG_Q1))
+    out = _fma(e, _r32(_LOG_Q2), _fma(t2, -0.5, t) + y)
+    out = torch.where((x <= 0) | torch.isnan(x), float("nan"), out)
+    out = torch.where(x.abs() < _MIN_NORMAL_F32, float("-inf"), out)   # denormals flush to 0
+    return torch.where(x == float("inf"), float("inf"), out)
+
+
 # XLA's log1p below sqrt(2) - 1 in magnitude: Cephes' rational function.
 _LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
               6.5787325942061044846969e0, 2.9911919328553073277375e1,
@@ -140,8 +176,8 @@ _LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
 
 
 def _log1p_f32(x: torch.Tensor) -> torch.Tensor:
-    """XLA's float32 log1p: Cephes' rational form for small |x| (exact to
-    the reference), ``log(1 + x)`` above it (within 1 ulp of XLA's log)."""
+    """XLA's float32 log1p: Cephes' rational form for small |x|, XLA's
+    ``log(1 + x)`` above it."""
 
     def poly(cs):
         p = torch.full_like(x, cs[0])
@@ -152,7 +188,7 @@ def _log1p_f32(x: torch.Tensor) -> torch.Tensor:
     x2 = x * x
     small = (x * x2) * (poly(_LOG1P_NUM) / poly(_LOG1P_DEN))
     small = x + _fma(-0.5, x2, small)
-    return torch.where(x.abs() < 0.41421356237309504880, small, torch.log(x + 1.0))
+    return torch.where(x.abs() < 0.41421356237309504880, small, _log_f32(x + 1.0))
 
 
 def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
@@ -161,12 +197,14 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     Horner step into one fused multiply-add, and so does this."""
     w = -_log1p_f32(x * -x)
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    # sqrt through float64: correctly rounded on every device (torch's f32
+    # sqrt on the CPU is not), as XLA's is
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
     p = torch.where(lt, _r32(_ERFINV_LT5[0]), _r32(_ERFINV_GE5[0]))
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
         p = _fma(p, w, torch.where(lt, _r32(a), _r32(b)))
     out = p * x
-    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max, out)
+    return torch.where(x.abs() == 1.0, x * float("inf"), out)
 
 
 def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

@@ -4,7 +4,7 @@ Port of ``repro/core/rsvd.py``.  Works over any leading stack axes: ``A``
 is ``(..., l, m)`` and ``key`` is ``(..., 2)``, one threefry key per matrix,
 so one call sketches all L layers of a group.  The Gaussian test matrix
 comes from :func:`repro_torch.core.prng.normal` on the reference's key, so
-the sketch is the reference's up to a few ulp.  QR and SVD of the small
+it is the reference's bit for bit.  QR and SVD of the small
 core are ``torch.linalg`` calls (LAPACK on the CPU, cuSOLVER on the card);
 their column signs differ from XLA's, which is harmless: callers use
 ``U``/``Vt`` only through products and squared norms.

@@ -1,9 +1,10 @@
 """Uplink compression methods as thin shells over the stateless codecs.
 
-Port of ``repro/fl/compression.py`` for the methods this slice runs
-(``fedavg`` and ``gradestc``).  A method is host-side configuration that
-builds one codec per compressed group; :class:`RoundAccountant` turns a
-round's packed int32 stats row into exact integer-bit ledger charges.
+Port of ``repro/fl/compression.py`` for the methods the port runs
+(``fedavg``, ``gradestc`` and ``svdfed``).  A method is host-side
+configuration that builds one codec per compressed group;
+:class:`RoundAccountant` turns a round's packed int32 stats row into exact
+integer-bit ledger charges.
 """
 
 from __future__ import annotations
@@ -13,11 +14,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..core.codecs import Codec, GradESTCCodec
+from ..core.codecs import Codec, GradESTCCodec, SVDFedCodec
 from ..core.policy import CompressionPolicy, LayerPlan
 
 __all__ = ["make_method", "path_index", "build_codecs", "pack_round_stats",
-           "RoundAccountant", "FedAvgMethod", "GradESTCMethod"]
+           "RoundAccountant", "FedAvgMethod", "GradESTCMethod", "SVDFedMethod"]
 
 
 def path_index(policy: CompressionPolicy) -> Dict[str, int]:
@@ -47,8 +48,30 @@ class FedAvgMethod(_MethodShell):
         return None
 
 
+class SVDFedMethod(_MethodShell):
+    """Shared server-fit basis, coefficient uplink between refits (SVDFed)."""
+
+    name = "svdfed"
+
+    def __init__(self, policy: CompressionPolicy, gamma: float = 8.0,
+                 wire_dtype: str = "f32", **kw):
+        super().__init__(**kw)
+        self.policy = policy
+        self.gamma = gamma
+        # explicit, not swallowed by **kw: a dropped wire_dtype would charge
+        # f32 bits for a wire the caller believed was int8
+        self.wire_dtype = wire_dtype
+
+    def build_codec(self, path, plan, path_idx):
+        if not plan.compress:
+            return None
+        return SVDFedCodec(plan, gamma=self.gamma, seed=self.seed,
+                           path_idx=path_idx, wire_dtype=self.wire_dtype)
+
+
 class GradESTCMethod(_MethodShell):
-    """The paper's method (variant ``full``, f32 coefficient wire)."""
+    """The paper's method (variant ``full``; f32, bf16 or int8 coefficient
+    wire)."""
 
     name = "gradestc"
 
@@ -73,10 +96,10 @@ def make_method(name: str, policy: Optional[CompressionPolicy] = None, **kw):
     name = name.lower()
     if name == "fedavg":
         return FedAvgMethod(**kw)
-    if name == "gradestc":
+    if name in ("gradestc", "svdfed"):
         if policy is None:
-            raise ValueError("gradestc needs a compression policy")
-        return GradESTCMethod(policy, **kw)
+            raise ValueError(f"{name} needs a compression policy")
+        return (GradESTCMethod if name == "gradestc" else SVDFedMethod)(policy, **kw)
     raise NotImplementedError(
         f"method {name!r} is not ported yet (the other codecs, EF and the "
         "GradESTC ablations are ROADMAP A9)")

@@ -8,9 +8,12 @@ applies them with ``server_lr``.  Client selection, codec keys and initial
 weights come from the reference's threefry chains, and the ledger charges
 exact integer bits, so ``ledger.per_round_uplink`` equals the reference's.
 
-The port runs on ``FLConfig.device`` ("cuda" by default).  On the card the
-GradESTC projection and reconstruction run the hand-written CUDA kernels;
-there is no plain path there.  The fused K-round engine is ROADMAP A8.
+The port runs on ``FLConfig.device`` ("cuda" by default).  Methods:
+``fedavg``, ``gradestc`` (variant ``full``) and ``svdfed``, each compressed
+method with ``method_kw={"wire_dtype": "f32" | "bf16" | "int8"}``.  On the
+card GradESTC's projection, reconstruction and int8 wire, and SVDFed's int8
+uplink, run the hand-written CUDA kernels; there is no plain path there.
+The fused K-round engine is ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -230,8 +233,9 @@ def _run_fl_loop(cfg: FLConfig, progress=None) -> FLResult:
                     raw_acc[path] = delta if path not in raw_acc else raw_acc[path] + delta
                     continue
                 cst = tuple(x[c] for x in cstate[path])
-                # no key: GradESTC draws from its own state's keys, and the
-                # codecs that take the round's key are not ported (ROADMAP A9)
+                # no key: GradESTC draws from its own state's keys, SVDFed
+                # draws nothing, and the codecs that take the round's key are
+                # not ported (ROADMAP A9)
                 cst2, rw, stats = codec.encode(cst, shared[path], None,
                                                codec.to_wire(delta))
                 for x, u in zip(cstate[path], cst2):   # in place: one slot per client

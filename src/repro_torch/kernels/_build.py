@@ -14,6 +14,7 @@ import time: the CPU tests import every module without a CUDA toolkit.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -23,7 +24,7 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
-__all__ = ["load", "BUILD_ROOT", "NVCC_FLAGS", "last_build"]
+__all__ = ["load", "BUILD_ROOT", "NVCC_FLAGS", "last_build", "launches"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "gradestc.cu"
@@ -37,11 +38,17 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "gradestc_encode_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gradestc_decode_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "gradestc_coeff_quant_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "gradestc_encode_quant_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gradestc_decode_wire_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
 #: what the last build did: {"seconds": float, "dir": str, "log": str}
 last_build: Dict[str, object] = {}
+#: kernel launches by name, one per wrapper call that launched (read and
+#: reset through ``ops.launch_counts``/``ops.reset_launch_counts``)
+launches: "collections.Counter[str]" = collections.Counter()
 
 
 def _nvcc() -> str:

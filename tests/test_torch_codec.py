@@ -1,8 +1,9 @@
 """Port vs reference: the GradESTC codec, stats packing and the accountant.
 
-Two rounds (init, then steady) for two clients through both codecs: stats
-vectors, reduced stats, the Formula-13 ``d``, ``charge_bits`` and the
-ledger must match exactly; reconstructions within ``1e-5 ||G||_F``."""
+Two rounds (init, then steady) for two clients through both codecs, on each
+coefficient wire: stats vectors, reduced stats, the Formula-13 ``d``,
+``charge_bits`` and the ledger must match exactly; reconstructions within
+``1e-5 ||G||_F`` on the f32 wire and ``1e-3 ||G||_F`` on bf16/int8."""
 
 import pytest
 
@@ -24,6 +25,9 @@ from repro_torch.fl import compression as tcomp  # noqa: E402
 
 GROUPS = {"layers/w": ((256, 64), 2), "layers/ln": ((64,), 2), "embed": ((64, 64), 1)}
 RTOL = 1e-5
+#: bf16 / int8 wires: a coefficient that the two sides' GEMMs put on either
+#: side of a rounding boundary ships one quantum apart (measured: <= 2.6e-4)
+LOSSY_RTOL = 1e-3
 
 
 def _deltas(seed, plan, rounds=2, clients=2):
@@ -44,14 +48,15 @@ def _deltas(seed, plan, rounds=2, clients=2):
     return out
 
 
-def test_codec_two_rounds_exact_accounting():
+@pytest.mark.parametrize("wire", ["f32", "bf16", "int8"])
+def test_codec_two_rounds_exact_accounting(wire):
     jpol = jpolicy.make_policy(GROUPS, min_params=4096)
     tpol = tpolicy.make_policy(GROUPS, min_params=4096)
     path = "layers/w"
     assert jcomp.path_index(jpol) == tcomp.path_index(tpol)
     pidx = jcomp.path_index(jpol)[path]
-    jc = jcodecs.GradESTCCodec(jpol.plans[path], seed=3, path_idx=pidx)
-    tc = tcodecs.GradESTCCodec(tpol.plans[path], seed=3, path_idx=pidx)
+    jc = jcodecs.GradESTCCodec(jpol.plans[path], seed=3, path_idx=pidx, wire_dtype=wire)
+    tc = tcodecs.GradESTCCodec(tpol.plans[path], seed=3, path_idx=pidx, wire_dtype=wire)
     C = 2
     jst, tst = jc.init_client_state(C), tc.init_client_state(C, "cpu")
     np.testing.assert_array_equal(np.asarray(jst[1]).astype(np.int64), tst[1].numpy())
@@ -73,7 +78,8 @@ def test_codec_two_rounds_exact_accounting():
             for x, u in zip(tst, t2):
                 x[c] = u
             np.testing.assert_array_equal(np.asarray(js), ts.numpy())
-            assert np.linalg.norm(np.asarray(jg) - tg.numpy()) <= RTOL * np.linalg.norm(delta)
+            tol = RTOL if wire == "f32" else LOSSY_RTOL
+            assert np.linalg.norm(np.asarray(jg) - tg.numpy()) <= tol * np.linalg.norm(delta)
             jstats.append(js)
             tstats.append(ts)
             jsum, tsum = jsum + jg, tsum + tg
@@ -120,8 +126,11 @@ def test_accountant_and_packing_exact(method):
 
 def test_unported_methods_raise():
     tpol = tpolicy.make_policy(GROUPS, min_params=4096)
-    for name in ("topk", "svdfed", "gradestc-ef"):
+    for name in ("topk", "fedpaq", "signsgd", "fedqclip", "gradestc-ef"):
         with pytest.raises(NotImplementedError):
             tcomp.make_method(name, policy=tpol)
-    with pytest.raises(NotImplementedError):
-        tcodecs.GradESTCCodec(tpol.plans["layers/w"], wire_dtype="int8")
+    for variant in ("first", "all", "k"):
+        with pytest.raises(NotImplementedError):
+            tcodecs.GradESTCCodec(tpol.plans["layers/w"], variant=variant)
+    with pytest.raises(ValueError):
+        tcodecs.GradESTCCodec(tpol.plans["layers/w"], wire_dtype="int4")
