@@ -1,16 +1,19 @@
 """Stateless codec protocol: GradESTC behind the reference's codec contract.
 
 Port of ``repro/core/codecs.py`` (the parts the ported paths run: the
-``Codec`` base, the ``(L, l, m)`` matrix wire layout, the f32/bf16/int8
-coefficient wires, ``GradESTCCodec`` variant ``full`` and
-``SVDFedCodec``).  A codec owns its wire layout
+``Codec`` base, the flat ``(n,)`` layout of the per-tensor baselines with
+``SignSGDCodec``, ``FedPAQCodec`` and ``FedQClipCodec``, the ``(L, l, m)``
+matrix wire layout, the f32/bf16/int8 coefficient wires, ``GradESTCCodec``
+variant ``full`` and ``SVDFedCodec``).  A codec owns its wire layout
 (``to_wire``/``from_wire``) and per-client state, and ``encode`` returns
 the new state, the server-side reconstruction in wire layout and a small
 int32 stats vector -- the only thing the host ever reads.  ``charge_bits``
 turns the reduced stats into exact Python-int uplink bits (Formula 14).
 
 PRNG streams are ``fold_in`` chains (:mod:`repro_torch.core.prng`), the
-reference's exactly.
+reference's exactly: the quantizers draw from :func:`round_base_key`
+folded with the client id and the group index (``Codec.per_client_key``),
+GradESTC's bases from :func:`client_layer_keys`.
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ from . import prng
 from .policy import LayerPlan
 from .rsvd import randomized_svd
 
-__all__ = ["Codec", "GradESTCCodec", "SVDFedCodec", "client_layer_keys",
-           "round_base_key", "SERVER_CLIENT_ID"]
+__all__ = ["Codec", "SignSGDCodec", "FedPAQCodec", "FedQClipCodec", "GradESTCCodec",
+           "SVDFedCodec", "client_layer_keys", "round_base_key", "SERVER_CLIENT_ID"]
 
 #: Client id of server-side (downlink) codec instances.
 SERVER_CLIENT_ID = 0xFFFFFFFF
@@ -42,8 +45,8 @@ def client_layer_keys(seed: int, client: int, path_idx: int, L: int,
 
 
 def round_base_key(seed: int, rnd: int, device="cuda") -> torch.Tensor:
-    """Per-round base for codec randomness (the quantizers' draws; neither
-    codec this slice runs takes one)."""
+    """Per-round base for codec randomness (the FedPAQ/FedQClip draws),
+    folded with the client id and group index by ``Codec.per_client_key``."""
     return prng.fold_in(prng.PRNGKey(seed + 0x5EED, device), rnd)
 
 
@@ -52,9 +55,17 @@ class Codec:
 
     client_stats_len: int = 0
     stats_len: int = 0
+    #: whether ``encode`` draws from its ``key``; the engine derives the
+    #: round's per-client keys only when some codec does
+    draws: bool = False
 
     def __init__(self, path_idx: int = 0):
         self.path_idx = path_idx
+
+    def per_client_key(self, base_key: torch.Tensor, client) -> torch.Tensor:
+        """The (round, client, group) draw key: ``client`` is an int or an
+        integer tensor on the key's device (one key per element)."""
+        return prng.fold_in(prng.fold_in(base_key, client), self.path_idx)
 
     def init_client_state(self, n_clients: int, device="cuda"):
         return ()
@@ -70,9 +81,9 @@ class Codec:
 
     def encode(self, cstate, shared, key, wire):
         """-> (cstate', recon_wire, stats int32 (client_stats_len,)).  ``key``
-        is the client's draw key for codecs that sample; GradESTC draws from
-        its state's keys, SVDFed draws nothing, and the loop engine passes
-        ``None``."""
+        is the client's draw key for the codecs that draw (``draws``);
+        GradESTC draws from its state's keys, SVDFed and signSGD draw
+        nothing, and the loop engine passes them ``None``."""
         raise NotImplementedError
 
     def reduce_stats(self, stats: torch.Tensor) -> torch.Tensor:
@@ -86,6 +97,82 @@ class Codec:
 
     def host_metrics(self, reduced: np.ndarray, n_sel: int) -> Dict[str, int]:
         return {}
+
+
+def _no_stats(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((0,), dtype=torch.int32, device=x.device)
+
+
+class _FlatCodec(Codec):
+    """Flat ``(n,)`` f32 layout of the per-tensor baselines, which compress
+    every parameter group."""
+
+    def __init__(self, n: int, path_idx: int = 0):
+        super().__init__(path_idx)
+        self.n = int(n)
+
+    def to_wire(self, delta: torch.Tensor) -> torch.Tensor:
+        return delta.reshape(-1).float()
+
+
+class SignSGDCodec(_FlatCodec):
+    """1-bit sign wire with a mean-|g| scale (signSGD): ``n`` bits and one
+    32-bit scale per client.  An exact zero ships as +scale.  The kernels
+    and the plain versions are bit-exact, so the reference's ``use_pallas``
+    switch has nothing to choose here; the device picks the path."""
+
+    def encode(self, cstate, shared, key, wire):
+        words, scale = ops.sign_wire(wire)
+        return (), ops.sign_unwire(words, scale, self.n), _no_stats(wire)
+
+    def charge_bits(self, reduced, n_sel):
+        return (self.n + 32) * n_sel
+
+
+class FedPAQCodec(_FlatCodec):
+    """Stochastic uniform quantization (FedPAQ).  ``use_pallas=True``: the
+    block-local wire (one 32-bit scale per ``block`` values; the kernels on
+    the card); ``use_pallas=False``: the paper's global-max-abs quantizer
+    (one scale; the CPU only).  Both ship ``n * bits`` code bits."""
+
+    draws = True
+
+    def __init__(self, n: int, bits: int = 8, path_idx: int = 0,
+                 use_pallas: bool = False, block: int = 512):
+        super().__init__(n, path_idx)
+        self.bits = int(bits)
+        self.use_pallas = bool(use_pallas)
+        self.block = int(block)
+
+    def _quantize(self, g, key):
+        return ops.quantize_update(g, key, bits=self.bits, block=self.block,
+                                   use_pallas=self.use_pallas)
+
+    def encode(self, cstate, shared, key, wire):
+        return (), self._quantize(wire, key), _no_stats(wire)
+
+    @property
+    def _n_scales(self) -> int:
+        return -(-self.n // self.block) if self.use_pallas else 1
+
+    def charge_bits(self, reduced, n_sel):
+        return (self.n * self.bits + 32 * self._n_scales) * n_sel
+
+
+class FedQClipCodec(FedPAQCodec):
+    """Clipped and quantized updates (FedQClip): the update is scaled by
+    ``min(1, clip / max(||g||, 1e-12))``, then shipped on FedPAQ's wire."""
+
+    def __init__(self, n: int, clip: float = 100.0, bits: int = 8, path_idx: int = 0,
+                 use_pallas: bool = False, block: int = 512):
+        super().__init__(n, bits, path_idx, use_pallas, block)
+        self.clip = float(clip)
+
+    def encode(self, cstate, shared, key, wire):
+        norm = torch.linalg.vector_norm(wire).clamp_min(1e-12)
+        # a true division (python / tensor would multiply by a reciprocal)
+        factor = torch.full_like(norm, self.clip).div(norm).clamp_max(1.0)
+        return (), self._quantize(wire * factor, key), _no_stats(wire)
 
 
 class _MatrixCodec(Codec):

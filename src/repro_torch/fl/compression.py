@@ -1,8 +1,9 @@
 """Uplink compression methods as thin shells over the stateless codecs.
 
 Port of ``repro/fl/compression.py`` for the methods the port runs
-(``fedavg``, ``gradestc`` and ``svdfed``).  A method is host-side
-configuration that builds one codec per compressed group;
+(``fedavg``, ``gradestc``, ``svdfed``, ``signsgd``, ``fedpaq`` and
+``fedqclip``).  A method is host-side configuration that builds one codec
+per compressed group;
 :class:`RoundAccountant` turns a round's packed int32 stats row into exact
 integer-bit ledger charges.
 """
@@ -14,11 +15,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..core.codecs import Codec, GradESTCCodec, SVDFedCodec
+from ..core.codecs import (Codec, FedPAQCodec, FedQClipCodec, GradESTCCodec,
+                           SignSGDCodec, SVDFedCodec)
 from ..core.policy import CompressionPolicy, LayerPlan
 
 __all__ = ["make_method", "path_index", "build_codecs", "pack_round_stats",
-           "RoundAccountant", "FedAvgMethod", "GradESTCMethod", "SVDFedMethod"]
+           "RoundAccountant", "FedAvgMethod", "GradESTCMethod", "SVDFedMethod",
+           "SignSGDMethod", "FedPAQMethod", "FedQClipMethod"]
 
 
 def path_index(policy: CompressionPolicy) -> Dict[str, int]:
@@ -28,14 +31,16 @@ def path_index(policy: CompressionPolicy) -> Dict[str, int]:
 
 class _MethodShell:
     """Host-side method config; ``build_codec`` returns ``None`` for a
-    group that ships raw."""
+    group that ships raw.  ``use_pallas`` is the run's resolved kernel
+    switch (it picks FedPAQ's and FedQClip's wire)."""
 
     name = "?"
 
     def __init__(self, seed: int = 0, **_):
         self.seed = seed
 
-    def build_codec(self, path: str, plan: LayerPlan, path_idx: int) -> Optional[Codec]:
+    def build_codec(self, path: str, plan: LayerPlan, path_idx: int,
+                    use_pallas: bool = False) -> Optional[Codec]:
         raise NotImplementedError
 
 
@@ -44,8 +49,46 @@ class FedAvgMethod(_MethodShell):
 
     name = "fedavg"
 
-    def build_codec(self, path, plan, path_idx):
+    def build_codec(self, path, plan, path_idx, use_pallas=False):
         return None
+
+
+class SignSGDMethod(_MethodShell):
+    """1-bit signs and a mean-|g| scale for every group (signSGD)."""
+
+    name = "signsgd"
+
+    def build_codec(self, path, plan, path_idx, use_pallas=False):
+        return SignSGDCodec(plan.raw_scalars, path_idx=path_idx)
+
+
+class FedPAQMethod(_MethodShell):
+    """Stochastic uniform quantization of every group (FedPAQ)."""
+
+    name = "fedpaq"
+
+    def __init__(self, bits: int = 8, **kw):
+        super().__init__(**kw)
+        self.bits = bits
+
+    def build_codec(self, path, plan, path_idx, use_pallas=False):
+        return FedPAQCodec(plan.raw_scalars, bits=self.bits, path_idx=path_idx,
+                           use_pallas=use_pallas)
+
+
+class FedQClipMethod(_MethodShell):
+    """Clipped and quantized updates of every group (FedQClip)."""
+
+    name = "fedqclip"
+
+    def __init__(self, clip: float = 100.0, bits: int = 8, **kw):
+        super().__init__(**kw)
+        self.clip = clip
+        self.bits = bits
+
+    def build_codec(self, path, plan, path_idx, use_pallas=False):
+        return FedQClipCodec(plan.raw_scalars, clip=self.clip, bits=self.bits,
+                             path_idx=path_idx, use_pallas=use_pallas)
 
 
 class SVDFedMethod(_MethodShell):
@@ -62,7 +105,7 @@ class SVDFedMethod(_MethodShell):
         # f32 bits for a wire the caller believed was int8
         self.wire_dtype = wire_dtype
 
-    def build_codec(self, path, plan, path_idx):
+    def build_codec(self, path, plan, path_idx, use_pallas=False):
         if not plan.compress:
             return None
         return SVDFedCodec(plan, gamma=self.gamma, seed=self.seed,
@@ -84,7 +127,7 @@ class GradESTCMethod(_MethodShell):
         self.alpha, self.beta = alpha, beta
         self.wire_dtype = wire_dtype
 
-    def build_codec(self, path, plan, path_idx):
+    def build_codec(self, path, plan, path_idx, use_pallas=False):
         if not plan.compress:
             return None
         return GradESTCCodec(plan, seed=self.seed, path_idx=path_idx,
@@ -96,21 +139,25 @@ def make_method(name: str, policy: Optional[CompressionPolicy] = None, **kw):
     name = name.lower()
     if name == "fedavg":
         return FedAvgMethod(**kw)
+    flat = {"signsgd": SignSGDMethod, "fedpaq": FedPAQMethod, "fedqclip": FedQClipMethod}
+    if name in flat:
+        return flat[name](**kw)
     if name in ("gradestc", "svdfed"):
         if policy is None:
             raise ValueError(f"{name} needs a compression policy")
         return (GradESTCMethod if name == "gradestc" else SVDFedMethod)(policy, **kw)
     raise NotImplementedError(
-        f"method {name!r} is not ported yet (the other codecs, EF and the "
-        "GradESTC ablations are ROADMAP A9)")
+        f"method {name!r} is not ported yet (top-k, EF and the GradESTC "
+        "ablations are ROADMAP A9)")
 
 
-def build_codecs(method, policy: CompressionPolicy, group_paths) -> Dict[str, Codec]:
+def build_codecs(method, policy: CompressionPolicy, group_paths,
+                 use_pallas: bool = False) -> Dict[str, Codec]:
     """One codec per compressed group; paths absent from the result ship raw."""
     pidx = path_index(policy)
     out: Dict[str, Codec] = {}
     for path in group_paths:
-        codec = method.build_codec(path, policy.plans[path], pidx[path])
+        codec = method.build_codec(path, policy.plans[path], pidx[path], use_pallas)
         if codec is not None:
             out[path] = codec
     return out

@@ -9,11 +9,16 @@ weights come from the reference's threefry chains, and the ledger charges
 exact integer bits, so ``ledger.per_round_uplink`` equals the reference's.
 
 The port runs on ``FLConfig.device`` ("cuda" by default).  Methods:
-``fedavg``, ``gradestc`` (variant ``full``) and ``svdfed``, each compressed
-method with ``method_kw={"wire_dtype": "f32" | "bf16" | "int8"}``.  On the
-card GradESTC's projection, reconstruction and int8 wire, and SVDFed's int8
-uplink, run the hand-written CUDA kernels; there is no plain path there.
-The fused K-round engine is ROADMAP A8.
+``fedavg``; ``gradestc`` (variant ``full``) and ``svdfed``, each with
+``method_kw={"wire_dtype": "f32" | "bf16" | "int8"}``; and the flat
+baselines ``signsgd``, ``fedpaq`` and ``fedqclip``.  On the card GradESTC's
+projection, reconstruction and int8 wire, SVDFed's int8 uplink and the
+sign and quantizer wires run the hand-written CUDA kernels; there is no
+plain path there.  ``use_pallas`` resolves as in the reference: ``None``
+means the kernels on the card and the plain versions on the CPU, where
+FedPAQ/FedQClip then run the paper's global quantizer and
+``use_pallas=True`` gives the card's block-local wire.  The fused K-round
+engine is ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core import prng
+from ..core.codecs import round_base_key
 from ..core.metrics import CommLedger, host_fetch
 from ..core.policy import make_policy
 from ..data import client_batch_stream, make_task
@@ -78,8 +84,10 @@ class FLConfig:
     min_params: int = 4096
     #: only the per-client loop engine is ported; "fused" is ROADMAP A8.
     engine: str = "loop"
-    #: the device decides: kernels on CUDA, plain versions on the CPU.
-    #: ``False`` with a CUDA device is refused (no plain path on the card).
+    #: None: True on CUDA (the kernels), False on the CPU (the plain
+    #: versions, and the paper's global quantizer for FedPAQ/FedQClip).
+    #: ``False`` with a CUDA device is refused (no plain path on the card);
+    #: ``True`` on the CPU gives the block-local quantizer wire.
     use_pallas: Optional[bool] = None
     #: where the run lives: "cuda" (default) or "cpu".
     device: str = "cuda"
@@ -203,7 +211,14 @@ def _run_fl_loop(cfg: FLConfig, progress=None) -> FLResult:
     ledger, group_paths, n_sel = su.ledger, su.group_paths, su.n_sel
     C = cfg.n_clients
 
-    codecs = build_codecs(su.method, su.policy, group_paths)
+    use_pallas = dev.type == "cuda" if cfg.use_pallas is None else bool(cfg.use_pallas)
+    codecs = build_codecs(su.method, su.policy, group_paths, use_pallas)
+    # the quantizers' keys: fold_in(fold_in(round base, client), path index),
+    # one batched chain per round over the selected clients and drawing groups
+    drawing = [p for p in codecs if codecs[p].draws]
+    key_col = {p: j for j, p in enumerate(drawing)}
+    path_idx_t = torch.tensor([codecs[p].path_idx for p in drawing],
+                              dtype=torch.int64).to(dev, non_blocking=True)
     acct = RoundAccountant(codecs, su.policy, group_paths, n_sel)
     cstate = {p: c.init_client_state(C, dev) for p, c in codecs.items()}
     shared = {p: c.init_shared_state(dev) for p, c in codecs.items()}
@@ -218,11 +233,15 @@ def _run_fl_loop(cfg: FLConfig, progress=None) -> FLResult:
         t_round = time.perf_counter()
         ledger.begin_round()
         sel = select_round_clients(cfg.seed, rnd, C, n_sel)
+        if drawing:
+            sel_t = torch.tensor(sel, dtype=torch.int64).to(dev, non_blocking=True)
+            per_client = prng.fold_in(round_base_key(cfg.seed, rnd, dev), sel_t)
+            keys = prng.fold_in(per_client[:, None, :], path_idx_t)    # (n_sel, P, 2)
 
         raw_acc: Dict[str, torch.Tensor] = {}
         wire_acc: Dict[str, torch.Tensor] = {}
         stats_rows: Dict[str, list] = {p: [] for p in codecs}
-        for c in sel:
+        for i, c in enumerate(sel):
             batches = _stack_batches(
                 [next(su.streams[c]) for _ in range(cfg.local_steps)], dev)
             local = local_train(params, batches)
@@ -233,10 +252,10 @@ def _run_fl_loop(cfg: FLConfig, progress=None) -> FLResult:
                     raw_acc[path] = delta if path not in raw_acc else raw_acc[path] + delta
                     continue
                 cst = tuple(x[c] for x in cstate[path])
-                # no key: GradESTC draws from its own state's keys, SVDFed
-                # draws nothing, and the codecs that take the round's key are
-                # not ported (ROADMAP A9)
-                cst2, rw, stats = codec.encode(cst, shared[path], None,
+                # GradESTC draws from its own state's keys, SVDFed and signSGD
+                # draw nothing
+                key = keys[i, key_col[path]] if codec.draws else None
+                cst2, rw, stats = codec.encode(cst, shared[path], key,
                                                codec.to_wire(delta))
                 for x, u in zip(cstate[path], cst2):   # in place: one slot per client
                     x[c] = u
@@ -275,7 +294,7 @@ def _run_fl_loop(cfg: FLConfig, progress=None) -> FLResult:
 
     res.wall_s = time.time() - t0
     res.extra["engine"] = "loop"
-    res.extra["use_pallas"] = dev.type == "cuda"
+    res.extra["use_pallas"] = use_pallas
     res.extra["round_wall_s"] = round_wall
     res.extra.update(acct.metrics)
     return res

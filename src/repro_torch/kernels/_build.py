@@ -1,10 +1,11 @@
-"""Build the port's CUDA source at first use and load it with ctypes.
+"""Build the port's CUDA sources at first use and load them with ctypes.
 
-``csrc/gradestc.cu`` compiles into a shared library with a plain C
-interface:
+Every ``csrc/*.cu`` compiles into one shared library with a plain C
+interface: one nvcc per source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o libgradestc.so csrc/gradestc.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
+         -Xptxas -v -c -o <name>.o csrc/<name>.cu          (each source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libgradestc.so *.o
 
 The library lands in ``build/repro_torch_kernels/<hash>/`` under the
 repository root, keyed by a hash of the sources and flags, so an edited
@@ -27,13 +28,13 @@ from typing import Dict, Optional
 __all__ = ["load", "BUILD_ROOT", "NVCC_FLAGS", "last_build", "launches"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = CSRC / "gradestc.cu"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 #: C signatures of the library's entry points
 _SIGNATURES = {
     "gradestc_encode_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -41,6 +42,10 @@ _SIGNATURES = {
     "gradestc_coeff_quant_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "gradestc_encode_quant_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gradestc_decode_wire_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "wire_sign_pack_f32": [_P, _P, _P, _L, _P],
+    "wire_sign_unpack_f32": [_P, _P, _P, _L, _P],
+    "wire_quant_pack_f32": [_P, _P, _P, _P, _L, _I, _P],
+    "wire_unpack_dequant_f32": [_P, _P, _P, _L, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -59,6 +64,10 @@ def _nvcc() -> str:
     return found
 
 
+def _sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix == ".cu")
+
+
 def _build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.iterdir()):
@@ -68,27 +77,56 @@ def _build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
+def _compile(out: Path) -> Path:
+    """nvcc each source to an object, all at once, then link the library;
+    the compilers' output (ptxas registers and spills) goes to
+    ``<out>/nvcc.log``, which :func:`load` reads into ``last_build``."""
+    nvcc = _nvcc()
+    procs = []
+    for src in _sources():
+        obj = out / f"{src.stem}.{os.getpid()}.o"
+        procs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, obj, proc in procs:
+        text = proc.communicate()[0]
+        log.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    tmp = out / f"libgradestc.{os.getpid()}.so"
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                               *(str(obj) for _, obj, _ in procs)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(f"== link\n{link.stdout}")
+        if link.returncode != 0:
+            failed.append("link")
+    for _, obj, _ in procs:
+        obj.unlink(missing_ok=True)
+    text = "\n".join(log)
+    (out / "nvcc.log").write_text(text)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{text}")
+    return tmp
+
+
 def load() -> ctypes.CDLL:
-    """The kernels' library, compiled from ``csrc/gradestc.cu`` unless this
-    build of the sources exists, then loaded once per process."""
+    """The kernels' library, compiled from ``csrc/*.cu`` unless this build
+    of the sources exists, then loaded once per process."""
     global _LIB
     if _LIB is not None:
         return _LIB
     out = _build_dir()
     so = out / "libgradestc.so"
     t0 = time.perf_counter()
-    log = ""
     if not so.exists():
         out.mkdir(parents=True, exist_ok=True)
-        tmp = out / f"libgradestc.{os.getpid()}.so"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        log = proc.stdout
-        (out / "gradestc.nvcc.log").write_text(log)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{log}")
-        os.replace(tmp, so)       # atomic: concurrent builds agree
-    last_build.update(seconds=time.perf_counter() - t0, dir=str(out), log=log)
+        os.replace(_compile(out), so)       # atomic: concurrent builds agree
+    # a build made earlier (by another process) left its compilers' output
+    log = out / "nvcc.log"
+    last_build.update(seconds=time.perf_counter() - t0, dir=str(out),
+                      log=log.read_text() if log.exists() else "")
     lib = ctypes.CDLL(str(so))
     for fn, argtypes in _SIGNATURES.items():
         getattr(lib, fn).argtypes = argtypes

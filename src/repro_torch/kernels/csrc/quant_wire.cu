@@ -1,0 +1,241 @@
+// Quantizer wire kernels for Hopper (sm_90a): the signSGD sign wire and the
+// FedPAQ / FedQClip block-quantizer wire, with a plain C interface loaded
+// through ctypes (see kernels/_build.py, which compiles every .cu here into
+// one library).
+//
+// sign_pack:      g (n,) f32 -> words (ceil(n/32),) u32, bit i = (g_i < 0),
+//                 and rowsums (ceil(n/512),) f32, the pairwise-tree sum of
+//                 |g| over each 512-value row (zero padded)
+// sign_unpack:    words, scale (a device pointer) -> (1 - 2 bit) * scale, (n,)
+// quant_pack:     g (n,) f32 zero padded to n_p = ceil(n/512)*512, u (n_p,)
+//                 uniforms -> per row scale = max(max|g|, 1e-12), codes
+//                 floor(x) + (u < x - floor(x)) with x = g / scale * levels,
+//                 clipped to +-levels, biased by +levels and packed
+//                 32/bits to a word: words (n_p*bits/32,), scales (n_p/512,)
+// unpack_dequant: words, scales -> (code - levels) * (scale * f32(1/levels)),
+//                 the first n values
+//
+// Words are uint32 in the canonical layout (code i -> word i / cpw, shift
+// (i % cpw) * bits, cpw = 32 / bits); bits is 2, 4 or 8 for the quantizer.
+// Every kernel launches on the caller's stream, allocates nothing and
+// returns cudaGetLastError().
+//
+// Replaces (JAX/Pallas TPU reference):
+//   sign_pack      -> src/repro/kernels/wire.py::sign_pack_pallas
+//   sign_unpack    -> src/repro/kernels/wire.py::sign_unpack_pallas
+//   quant_pack     -> src/repro/kernels/wire.py::quant_pack_pallas
+//   unpack_dequant -> src/repro/kernels/wire.py::unpack_dequant_pallas
+//
+// What bounds them on an H100 SXM (3.35 TB/s): all four are single passes
+// that do a few operations per value, so HBM bandwidth.  quant_pack reads 8
+// bytes per value (g and u) and writes bits/8; sign_pack reads 4 and writes
+// 1/8; the unpackers read 1/8 or bits/8 and write 4.
+//
+// Results must equal the plain versions (kernels/ref.py) bit for bit:
+//   * sign_pack's row sum follows ref.pairwise_sum's tree: a warp owns a row,
+//     step j loads values 32j..32j+31 (one per lane), the butterfly
+//     __shfl_xor_sync at offsets 1, 2, 4, 8, 16 is the tree's first five
+//     levels (adjacent pairs first; f32 addition is commutative, so both
+//     lanes of a pair hold the same sum), and the 16 partials are then added
+//     pairwise.  __ballot_sync(g < 0) of step j is word j of the row.
+//   * quant_pack divides with __fdiv_rn and multiplies with __fmul_rn, so
+//     nvcc cannot contract x * levels - floor(x) into an FMA (the reference
+//     rounds the product first); max|g| is exact in any order.
+//   * unpack_dequant multiplies the integer code by scale * f32(1/levels),
+//     that product rounded once.
+// No --use_fast_math.
+//
+// Design (simple and right first; speed is later work):
+//   sign_pack: 256 threads, one warp per 512-value row, 16 coalesced loads a
+//     lane; the ragged last row loads 0.0 past n.
+//   sign_unpack, unpack_dequant: one thread per output value; the word is
+//     read through the L1 by the 32 (or cpw) threads that share it.
+//   quant_pack: 256 threads, one warp per row; lane L owns the 16 values
+//     16L..16L+15 of its row (four float4 loads of g and of u when the row is
+//     whole and aligned), keeps them in registers across the warp's max
+//     reduction, and writes its 16*bits/32 words.  Values past n read as 0.0
+//     (the reference's zero padding), so g is never copied to a padded
+//     buffer; u covers the padded length, as the reference draws it.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int ROW = 512;           // values per wire row (ref.WIRE_BLOCK)
+constexpr int ROW_THREADS = 256;   // 8 warps, one row each
+constexpr int ROWS_PER_BLOCK = ROW_THREADS / 32;
+constexpr int ELEM_THREADS = 256;
+constexpr float SCALE_FLOOR = 1e-12f;
+constexpr unsigned FULL = 0xffffffffu;
+
+__global__ void __launch_bounds__(ROW_THREADS)
+sign_pack_kernel(const float* __restrict__ g, uint32_t* __restrict__ words,
+                 float* __restrict__ rowsums, long long n, int rows) {
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
+  if (row >= rows) return;
+  const long long base = (long long)row * ROW;
+  const long long nw = (n + 31) / 32;
+  float part[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const long long i = base + 32 * j + lane;
+    const float v = i < n ? g[i] : 0.0f;
+    const unsigned w = __ballot_sync(FULL, v < 0.0f);
+    float a = fabsf(v);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) a = __fadd_rn(a, __shfl_xor_sync(FULL, a, o));
+    part[j] = a;
+    const long long wi = (long long)row * 16 + j;
+    if (lane == 0 && wi < nw) words[wi] = w;
+  }
+#pragma unroll
+  for (int s = 1; s < 16; s <<= 1) {
+#pragma unroll
+    for (int j = 0; j < 16; j += 2 * s) part[j] = __fadd_rn(part[j], part[j + s]);
+  }
+  if (lane == 0) rowsums[row] = part[0];
+}
+
+__global__ void __launch_bounds__(ELEM_THREADS)
+sign_unpack_kernel(const uint32_t* __restrict__ words, const float* __restrict__ scale,
+                   float* __restrict__ out, long long n) {
+  const long long i = (long long)blockIdx.x * ELEM_THREADS + threadIdx.x;
+  if (i >= n) return;
+  const float b = (float)((words[i / 32] >> (i % 32)) & 1u);
+  out[i] = __fmul_rn(__fsub_rn(1.0f, __fmul_rn(2.0f, b)), *scale);
+}
+
+// four consecutive values from i (a multiple of 4); 0.0 past n
+__device__ __forceinline__ float4 load4(const float* __restrict__ p, long long i,
+                                        long long n, bool vec) {
+  if (vec && i + 3 < n) return *reinterpret_cast<const float4*>(p + i);
+  float4 r;
+  r.x = i < n ? p[i] : 0.0f;
+  r.y = i + 1 < n ? p[i + 1] : 0.0f;
+  r.z = i + 2 < n ? p[i + 2] : 0.0f;
+  r.w = i + 3 < n ? p[i + 3] : 0.0f;
+  return r;
+}
+
+template <int BITS>
+__global__ void __launch_bounds__(ROW_THREADS)
+quant_pack_kernel(const float* __restrict__ g, const float* __restrict__ u,
+                  uint32_t* __restrict__ words, float* __restrict__ scales,
+                  long long n, int rows, bool vec) {
+  constexpr int CPW = 32 / BITS;             // codes per word
+  constexpr int WPL = 16 / CPW;              // words per lane
+  constexpr float LEVELS = (float)((1 << (BITS - 1)) - 1);
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
+  if (row >= rows) return;
+  const long long base = (long long)row * ROW + 16 * lane;
+  const long long n_p = (long long)rows * ROW;
+  float gv[16], uv[16];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 a = load4(g, base + 4 * q, n, vec);
+    const float4 b = load4(u, base + 4 * q, n_p, vec);
+    gv[4 * q] = a.x; gv[4 * q + 1] = a.y; gv[4 * q + 2] = a.z; gv[4 * q + 3] = a.w;
+    uv[4 * q] = b.x; uv[4 * q + 1] = b.y; uv[4 * q + 2] = b.z; uv[4 * q + 3] = b.w;
+  }
+  float mx = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 16; ++c) mx = fmaxf(mx, fabsf(gv[c]));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+  const float scale = fmaxf(mx, SCALE_FLOOR);
+  uint32_t w[WPL];
+#pragma unroll
+  for (int k = 0; k < WPL; ++k) w[k] = 0u;
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+    const float x = __fmul_rn(__fdiv_rn(gv[c], scale), LEVELS);
+    const float lo = floorf(x);
+    float code = __fadd_rn(lo, uv[c] < __fsub_rn(x, lo) ? 1.0f : 0.0f);
+    code = fminf(fmaxf(code, -LEVELS), LEVELS);
+    const uint32_t biased = (uint32_t)(int)__fadd_rn(code, LEVELS);
+    w[c / CPW] |= biased << ((c % CPW) * BITS);
+  }
+  uint32_t* out = words + ((long long)row * ROW + 16 * lane) / CPW;
+#pragma unroll
+  for (int k = 0; k < WPL; ++k) out[k] = w[k];
+  if (lane == 0) scales[row] = scale;
+}
+
+template <int BITS>
+__global__ void __launch_bounds__(ELEM_THREADS)
+unpack_dequant_kernel(const uint32_t* __restrict__ words, const float* __restrict__ scales,
+                      float* __restrict__ out, long long n) {
+  constexpr int CPW = 32 / BITS;
+  constexpr int LEVELS = (1 << (BITS - 1)) - 1;
+  // float(np.float32(1) / np.float32(levels)), rounded once
+  constexpr float INV = 1.0f / (float)LEVELS;
+  const long long i = (long long)blockIdx.x * ELEM_THREADS + threadIdx.x;
+  if (i >= n) return;
+  const int code = (int)((words[i / CPW] >> ((i % CPW) * BITS)) & ((1u << BITS) - 1u)) - LEVELS;
+  out[i] = __fmul_rn((float)code, __fmul_rn(scales[i / ROW], INV));
+}
+
+inline unsigned grid_for(long long items, int per_block) {
+  return (unsigned)((items + per_block - 1) / per_block);
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+}  // namespace
+
+// g (n,) f32 -> words (ceil(n/32),) u32, rowsums (ceil(n/512),) f32
+extern "C" int wire_sign_pack_f32(const float* g, uint32_t* words, float* rowsums,
+                                   long long n, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  const long long rows = (n + ROW - 1) / ROW;
+  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  sign_pack_kernel<<<grid_for(rows, ROWS_PER_BLOCK), ROW_THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(g, words, rowsums, n, (int)rows);
+  return (int)cudaGetLastError();
+}
+
+// words (ceil(n/32),) u32, scale () f32 on the device -> out (n,) f32
+extern "C" int wire_sign_unpack_f32(const uint32_t* words, const float* scale, float* out,
+                                     long long n, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  sign_unpack_kernel<<<grid_for(n, ELEM_THREADS), ELEM_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(words, scale, out, n);
+  return (int)cudaGetLastError();
+}
+
+// g (n,) f32, u (n_p,) f32 with n_p = ceil(n/512)*512 -> words (n_p*bits/32,) u32,
+// scales (n_p/512,) f32
+extern "C" int wire_quant_pack_f32(const float* g, const float* u, uint32_t* words,
+                                    float* scales, long long n, int bits, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  const long long rows = (n + ROW - 1) / ROW;
+  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool vec = aligned16(g) && aligned16(u);
+  const unsigned grid = grid_for(rows, ROWS_PER_BLOCK);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 2: quant_pack_kernel<2><<<grid, ROW_THREADS, 0, s>>>(g, u, words, scales, n, (int)rows, vec); break;
+    case 4: quant_pack_kernel<4><<<grid, ROW_THREADS, 0, s>>>(g, u, words, scales, n, (int)rows, vec); break;
+    case 8: quant_pack_kernel<8><<<grid, ROW_THREADS, 0, s>>>(g, u, words, scales, n, (int)rows, vec); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// words (n_p*bits/32,) u32, scales (n_p/512,) f32 -> out (n,) f32, n <= n_p
+extern "C" int wire_unpack_dequant_f32(const uint32_t* words, const float* scales,
+                                        float* out, long long n, int bits, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  const unsigned grid = grid_for(n, ELEM_THREADS);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 2: unpack_dequant_kernel<2><<<grid, ELEM_THREADS, 0, s>>>(words, scales, out, n); break;
+    case 4: unpack_dequant_kernel<4><<<grid, ELEM_THREADS, 0, s>>>(words, scales, out, n); break;
+    case 8: unpack_dequant_kernel<8><<<grid, ELEM_THREADS, 0, s>>>(words, scales, out, n); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

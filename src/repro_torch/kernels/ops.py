@@ -1,8 +1,10 @@
 """Public entry points of the port's kernels, dispatching on device.
 
-Port of ``repro/kernels/ops.py``: ``encode``/``decode`` and the coefficient
+Port of ``repro/kernels/ops.py``: ``encode``/``decode``, the coefficient
 wire (``coeff_quant``, ``coeff_roundtrip``, ``encode_quant``,
-``decode_wire``).  A tensor on the CPU goes to the plain version in
+``decode_wire``) and the quantizer wire (``sign_wire``/``sign_unwire``,
+``block_quant_wire``/``block_dequant_wire``, ``quantize_update``).  A
+tensor on the CPU goes to the plain version in
 ``ref``; a CUDA tensor goes to the hand-written kernel, or the call raises.
 There is no fall-back on the card: a shape or dtype the kernel does not
 take is an error, not a silent plain path.
@@ -13,6 +15,12 @@ matrices).  The kernels
 tile l in shared memory and mask the ragged m edge, so the reference's VMEM
 fit rule (``choose_block_m``), its fall-back to the oracle for large l and
 its column padding have no counterpart here.
+
+The quantizer wire works on flat ``(n,)`` vectors in rows of 512 values.
+Its words are uint32 values held as the bit patterns of int32 tensors on
+both devices.  The card's quantizer kernels take ``bits`` in {2, 4, 8} and
+512-value blocks; other widths raise there (the reference sends them to its
+oracle).
 """
 
 from __future__ import annotations
@@ -21,16 +29,19 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..core import baselines, prng
 from . import _build, gradestc_decode, gradestc_encode, ref, wire
 
 __all__ = ["encode", "decode", "coeff_quant", "coeff_roundtrip", "encode_quant",
-           "decode_wire", "WIRE_DTYPES", "KERNELS", "launch_counts",
-           "reset_launch_counts"]
+           "decode_wire", "sign_wire", "sign_unwire", "block_quant_wire",
+           "block_dequant_wire", "quantize_update", "WIRE_DTYPES", "KERNELS",
+           "launch_counts", "reset_launch_counts"]
 
 #: coefficient wire formats: exact f32, bf16 half-words, scaled int8 codes
 WIRE_DTYPES = ("f32", "bf16", "int8")
 #: the CUDA kernels, by the names their launches are counted under
-KERNELS = ("encode", "decode", "coeff_quant", "encode_quant", "decode_wire")
+KERNELS = ("encode", "decode", "coeff_quant", "encode_quant", "decode_wire",
+           "sign_pack", "sign_unpack", "quant_pack", "unpack_dequant")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -102,3 +113,82 @@ def decode_wire(M: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> t
     if _route(M, codes, scales) == "cpu":
         return ref.decode_ref(M, ref.coeff_dequant_ref(codes, scales))
     return gradestc_decode.decode_wire(M, codes, scales)
+
+
+def _words32(words: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 (the plain versions' words) -> the same
+    bits as int32, the wire words' type on both devices."""
+    return words.to(torch.int32)
+
+
+def _check_block(block: int) -> None:
+    if block != ref.WIRE_BLOCK:
+        raise ValueError(f"the quantizer kernels take block={ref.WIRE_BLOCK}, got {block}")
+
+
+def sign_wire(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """signSGD uplink of a flat ``g (n,)``: (words (ceil(n/32),), scale ()).
+    The scale is mean(|g|) by the two-stage tree: on the card the kernel
+    gives each row's sum and the rows are summed here, as the reference
+    finishes its kernel's partials, so both paths share one tree."""
+    if _route(g) == "cpu":
+        words, scale = ref.sign_pack_ref(g)
+        return _words32(words), scale
+    words, rowsums = wire.sign_pack(g)
+    return words, ref.pairwise_sum(rowsums) * ref.recip32(g.shape[0])
+
+
+def sign_unwire(words: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`sign_wire`: (n,) f32 of +-scale."""
+    if _route(words, scale) == "cpu":
+        return ref.sign_unpack_ref(words, scale, n)
+    return wire.sign_unpack(words, scale, n)
+
+
+def block_quant_wire(g: torch.Tensor, key: torch.Tensor, bits: int = 8,
+                     block: int = ref.WIRE_BLOCK
+                     ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Block-quantize and bit-pack a flat ``g (n,)`` (FedPAQ/FedQClip):
+    (words (n_p*bits/32,), scales (n_p/block,), pad), ``n_p = n + pad`` the
+    length padded to a whole block.  The stochastic rounding draws
+    ``prng.uniform(key, (n_p,))`` over the padded length, as the reference
+    does, on ``g``'s device."""
+    if bits < 2:
+        raise ValueError("1-bit quantization is the sign wire (ops.sign_wire)")
+    n = g.shape[0]
+    pad = (-n) % block
+    if _route(g, key) == "cpu":
+        words, scales = ref.quant_pack_ref(torch.nn.functional.pad(g, (0, pad)),
+                                           prng.uniform(key, (n + pad,)), block, bits)
+        return _words32(words), scales, pad
+    _check_block(block)
+    return (*wire.quant_pack(g, prng.uniform(key, (n + pad,)), bits), pad)
+
+
+def block_dequant_wire(words: torch.Tensor, scales: torch.Tensor, pad: int,
+                       bits: int = 8, block: int = ref.WIRE_BLOCK) -> torch.Tensor:
+    """Inverse of :func:`block_quant_wire`: unpack, un-bias, dequantize,
+    crop the padding."""
+    n_p = scales.shape[0] * block
+    if _route(words, scales) == "cpu":
+        return ref.unpack_dequant_ref(words, scales, n_p, block, bits)[: n_p - pad]
+    _check_block(block)
+    return wire.unpack_dequant(words, scales, n_p - pad, bits)
+
+
+def quantize_update(g: torch.Tensor, key: torch.Tensor, bits: int = 8,
+                    block: int = ref.WIRE_BLOCK, use_pallas: bool = False) -> torch.Tensor:
+    """Quantize a flat update through its packed wire and reconstruct it
+    (FedPAQ, FedQClip).  ``use_pallas=True``: the block-local quantizer
+    (one scale per ``block`` values; the kernels on the card).
+    ``use_pallas=False``: the paper's global-scale quantizer
+    (``core.baselines``), on the CPU only: the card has no plain path."""
+    if use_pallas:
+        words, scales, pad = block_quant_wire(g, key, bits=bits, block=block)
+        return block_dequant_wire(words, scales, pad, bits=bits, block=block).to(g.dtype)
+    if _route(g) != "cpu":
+        raise ValueError("use_pallas=False is the plain global quantizer, which runs "
+                         "only on the CPU")
+    codes, scale = baselines.quantize_stochastic(g, key, bits)
+    codes = ref.unpack_codes_ref(ref.pack_codes_ref(codes, bits), bits, g.shape[0])
+    return baselines.dequantize(codes, scale, bits).to(g.dtype)

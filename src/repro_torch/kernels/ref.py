@@ -18,9 +18,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["WIRE_BLOCK", "INV127", "encode_ref", "decode_ref", "pack_codes_ref",
-           "unpack_codes_ref", "coeff_quant_ref", "coeff_dequant_ref",
-           "bf16_pack_ref", "bf16_unpack_ref", "encode_quant_ref"]
+__all__ = ["WIRE_BLOCK", "INV127", "quant_levels", "recip32", "encode_ref", "decode_ref",
+           "block_quant_ref", "block_dequant_ref", "pack_codes_ref", "unpack_codes_ref",
+           "pairwise_sum", "mean_abs_ref", "sign_pack_ref", "sign_unpack_ref",
+           "quant_pack_ref", "unpack_dequant_ref", "coeff_quant_ref",
+           "coeff_dequant_ref", "bf16_pack_ref", "bf16_unpack_ref", "encode_quant_ref"]
 
 #: codes per scale row of every packed wire format.
 WIRE_BLOCK = 512
@@ -28,6 +30,18 @@ WIRE_BLOCK = 512
 #: Single-rounded f32 reciprocal of the int8 range (the coefficient wire's
 #: dequantization is defined as codes * (scale * INV127)).
 INV127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def quant_levels(bits: int) -> float:
+    """Magnitude of the symmetric signed code book of ``bits``-bit codes,
+    ``2^(bits-1) - 1`` (codes span ``[-levels, levels]``); a copy of
+    ``repro/kernels/quant.py::quant_levels``."""
+    return float((1 << (bits - 1)) - 1)
+
+
+def recip32(x: float) -> float:
+    """The f32 reciprocal of f32 ``x``, rounded once (a Python float)."""
+    return float(np.float32(1.0) / np.float32(x))
 
 
 def encode_ref(M: torch.Tensor, G: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -41,6 +55,33 @@ def encode_ref(M: torch.Tensor, G: torch.Tensor) -> Tuple[torch.Tensor, torch.Te
 def decode_ref(M: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     """Ghat = M A.  M: (..., l, k), A: (..., k, m)."""
     return (M.float() @ A.float()).to(M.dtype)
+
+
+def block_quant_ref(g: torch.Tensor, uniforms: torch.Tensor, block: int,
+                    bits: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block-wise stochastic uniform quantization: each ``block`` values of
+    ``g (..., n)`` (``n % block == 0``) get their own max-|g| scale, clamped
+    at 1e-12; ``x = g / scale * levels``, ``code = floor(x) + (u < x -
+    floor(x))``, clipped to ``[-levels, levels]``.
+
+    Returns (codes int8 ``(..., n)``, scales f32 ``(..., n / block)``)."""
+    levels = quant_levels(bits)
+    gb = g.float().reshape(*g.shape[:-1], -1, block)
+    ub = uniforms.float().reshape(gb.shape)
+    scale = gb.abs().amax(-1, keepdim=True).clamp_min(1e-12)
+    x = gb / scale * levels
+    lo = torch.floor(x)
+    codes = (lo + (ub < (x - lo)).float()).clamp(-levels, levels)
+    return codes.to(torch.int8).reshape(g.shape), scale[..., 0]
+
+
+def block_dequant_ref(codes: torch.Tensor, scales: torch.Tensor, block: int,
+                      bits: int = 8) -> torch.Tensor:
+    """``codes * (scale * f32(1/levels))``, the reciprocal rounded once, as
+    the reference defines the dequantization."""
+    inv = recip32(quant_levels(bits))
+    cb = codes.float().reshape(*codes.shape[:-1], -1, block)
+    return (cb * (scales[..., None] * inv)).reshape(codes.shape)
 
 
 def pack_codes_ref(codes: torch.Tensor, bits: int) -> torch.Tensor:
@@ -61,6 +102,64 @@ def unpack_codes_ref(words: torch.Tensor, bits: int, n: int) -> torch.Tensor:
     shifts = torch.arange(cpw, dtype=torch.int64, device=words.device) * bits
     c = (words.to(torch.int64)[..., :, None] >> shifts) & ((1 << bits) - 1)
     return c.reshape(*words.shape[:-1], -1)[..., :n]
+
+
+def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis by a fixed pairwise tree (adjacent pairs
+    first), zero padded to a power of two: the defined accumulation order of
+    the sign wire's scale."""
+    c = x.shape[-1]
+    p = 1 << max(c - 1, 0).bit_length()
+    if p != c:
+        x = torch.nn.functional.pad(x, (0, p - c))
+    while p > 1:
+        x = x[..., ::2] + x[..., 1::2]
+        p //= 2
+    return x[..., 0]
+
+
+def mean_abs_ref(g: torch.Tensor) -> torch.Tensor:
+    """mean(|g|) over the last axis by the two-stage reduction: pairwise
+    sums over rows of ``WIRE_BLOCK`` (zero padded), then across rows, then
+    times the single-rounded f32 reciprocal of ``n``.  The reference writes
+    ``/ n``; compiled (as its codecs always run), XLA rewrites the division
+    by that constant into this multiply, and the port follows the compiled
+    reference."""
+    n = g.shape[-1]
+    a = g.float().abs()
+    a = torch.nn.functional.pad(a, (0, (-n) % WIRE_BLOCK))
+    rows = pairwise_sum(a.reshape(*a.shape[:-1], -1, WIRE_BLOCK))
+    return pairwise_sum(rows) * recip32(n)
+
+
+def sign_pack_ref(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """signSGD wire: bit i = (g_i < 0) packed 32 to a word, and the mean-|g|
+    scale.  An exact zero (and -0.0) ships as +scale."""
+    return pack_codes_ref((g < 0).to(torch.int64), 1), mean_abs_ref(g)
+
+
+def sign_unpack_ref(words: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:
+    """+scale where the bit is 0, -scale where it is 1; ``scale`` has the
+    words' leading shape."""
+    b = unpack_codes_ref(words, 1, n).float()
+    return (1.0 - 2.0 * b) * scale[..., None]
+
+
+def quant_pack_ref(g: torch.Tensor, uniforms: torch.Tensor, block: int = WIRE_BLOCK,
+                   bits: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`block_quant_ref`, then the codes biased by ``+levels`` (into
+    ``[0, 2 levels]``) and bit-packed: (words ``(..., ceil(n bits / 32))``,
+    scales ``(..., n / block)``)."""
+    codes, scales = block_quant_ref(g, uniforms, block, bits)
+    return pack_codes_ref(codes.to(torch.int64) + int(quant_levels(bits)), bits), scales
+
+
+def unpack_dequant_ref(words: torch.Tensor, scales: torch.Tensor, n: int,
+                       block: int = WIRE_BLOCK, bits: int = 8) -> torch.Tensor:
+    """Inverse of :func:`quant_pack_ref`: unpack ``n`` codes, remove the bias,
+    dequantize.  Returns f32 ``(..., n)``."""
+    c = unpack_codes_ref(words, bits, n) - int(quant_levels(bits))
+    return block_dequant_ref(c.to(torch.int8), scales, block, bits)
 
 
 def _blocks(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""CUDA kernel wrapper: the deterministic int8 coefficient wire.
+"""CUDA kernel wrappers: the packed wire formats.
 
-Replaces ``src/repro/kernels/wire.py::coeff_quant_pallas`` (GradESTC's
+``coeff_quant``: the deterministic int8 coefficient wire.  Replaces
+``src/repro/kernels/wire.py::coeff_quant_pallas`` (GradESTC's
 ``wire_dtype="int8"``, reached through ``ops.coeff_roundtrip`` after basis
 replacement).  Per (row, 512-column block) of a coefficient matrix:
 ``scale = max(max|a|, 1e-12)``, ``codes = clip(rint(a / scale * 127),
@@ -9,6 +10,16 @@ kernel (``csrc/gradestc.cu``) takes a leading stack axis and masks the
 ragged last block, and equals its plain version ``ref.coeff_quant_ref`` bit
 for bit.  It moves 9 bytes per coefficient, so HBM bounds it; at the
 slice's sizes (~4 us of traffic) the call's host-side cost dominates.
+
+The quantizer wire (``csrc/quant_wire.cu``), on flat f32 vectors:
+``sign_pack``/``sign_unpack`` replace ``wire.py::sign_pack_pallas`` and
+``sign_unpack_pallas`` (signSGD), ``quant_pack``/``unpack_dequant`` replace
+``quant_pack_pallas`` and ``unpack_dequant_pallas`` (FedPAQ and FedQClip
+with ``use_pallas``).  Their plain versions are ``ref.sign_pack_ref``,
+``ref.sign_unpack_ref``, ``ref.quant_pack_ref`` and
+``ref.unpack_dequant_ref``; each kernel equals its plain version bit for bit.
+All four are single passes bounded by HBM bandwidth.  Wire words are
+uint32 values, held here as the bit patterns of an int32 tensor.
 """
 
 from __future__ import annotations
@@ -20,7 +31,31 @@ import torch
 from . import _build, ref
 from .gradestc_encode import check_operand
 
-__all__ = ["coeff_quant"]
+__all__ = ["coeff_quant", "sign_pack", "sign_unpack", "quant_pack", "unpack_dequant",
+           "QUANT_BITS"]
+
+#: bit widths whose codes tile a 512-value row in whole words
+QUANT_BITS = (2, 4, 8)
+
+
+def _launch(name: str, fn: str, *args) -> None:
+    rc = getattr(_build.load(), fn)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")
+    _build.launches[name] += 1
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _rows(n: int) -> int:
+    return -(-n // ref.WIRE_BLOCK)
+
+
+def _check_bits(bits: int) -> None:
+    if bits not in QUANT_BITS:
+        raise ValueError(f"the quantizer kernels take bits in {QUANT_BITS}, got {bits}")
 
 
 def coeff_quant(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -32,14 +67,81 @@ def coeff_quant(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tens
     scales = torch.empty((L, k, -(-m // ref.WIRE_BLOCK)), dtype=torch.float32,
                          device=A.device)
     ship = torch.empty_like(A)
-    if L * k * m == 0:
-        return codes, scales, ship
-    lib = _build.load()
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        rc = lib.gradestc_coeff_quant_f32(A.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-                                          ship.data_ptr(), L, k, m, stream)
-    if rc != 0:
-        raise RuntimeError(f"gradestc_coeff_quant_f32 launch failed: CUDA error {rc}")
-    _build.launches["coeff_quant"] += 1
+    if L * k * m:
+        with torch.cuda.device(A.device):
+            _launch("coeff_quant", "gradestc_coeff_quant_f32", A.data_ptr(), codes.data_ptr(),
+                    scales.data_ptr(), ship.data_ptr(), L, k, m, _stream(A))
     return codes, scales, ship
+
+
+def sign_pack(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """g (n,) f32 on a CUDA device -> (words int32 (ceil(n/32),), rowsums f32
+    (ceil(n/512),)): bit i = (g_i < 0), and each 512-value row's |g| summed
+    by ``ref.pairwise_sum``'s tree."""
+    check_operand("g", g, 1, g.device)
+    n = g.shape[0]
+    words = torch.empty((-(-n // 32),), dtype=torch.int32, device=g.device)
+    rowsums = torch.empty((_rows(n),), dtype=torch.float32, device=g.device)
+    if n:
+        with torch.cuda.device(g.device):
+            _launch("sign_pack", "wire_sign_pack_f32", g.data_ptr(), words.data_ptr(),
+                    rowsums.data_ptr(), n, _stream(g))
+    return words, rowsums
+
+
+def sign_unpack(words: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:
+    """words int32 (ceil(n/32),) and a 0-dim f32 ``scale`` on the same CUDA
+    device -> (n,) f32, +scale where the bit is 0 and -scale where it is 1.
+    The kernel reads ``scale`` on the device: no host fetch."""
+    check_operand("words", words, 1, words.device, torch.int32)
+    check_operand("scale", scale, 0, words.device)
+    if words.shape[0] != -(-n // 32):
+        raise ValueError(f"{words.shape[0]} words do not hold {n} signs")
+    out = torch.empty((n,), dtype=torch.float32, device=words.device)
+    if n:
+        with torch.cuda.device(words.device):
+            _launch("sign_unpack", "wire_sign_unpack_f32", words.data_ptr(),
+                    scale.data_ptr(), out.data_ptr(), n, _stream(words))
+    return out
+
+
+def quant_pack(g: torch.Tensor, u: torch.Tensor, bits: int = 8
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """g (n,) f32 and uniforms u (n_p,) f32, ``n_p = ceil(n/512)*512``, on
+    one CUDA device -> (words int32 (n_p*bits/32,), scales f32 (n_p/512,)).
+    g reads as zero past n (the reference's padding); ``bits`` in {2, 4, 8}."""
+    _check_bits(bits)
+    check_operand("g", g, 1, g.device)
+    check_operand("u", u, 1, g.device)
+    n = g.shape[0]
+    rows = _rows(n)
+    if u.shape[0] != rows * ref.WIRE_BLOCK:
+        raise ValueError(f"u has {u.shape[0]} values; g of {n} needs {rows * ref.WIRE_BLOCK}")
+    words = torch.empty((rows * ref.WIRE_BLOCK * bits // 32,), dtype=torch.int32,
+                        device=g.device)
+    scales = torch.empty((rows,), dtype=torch.float32, device=g.device)
+    if n:
+        with torch.cuda.device(g.device):
+            _launch("quant_pack", "wire_quant_pack_f32", g.data_ptr(), u.data_ptr(),
+                    words.data_ptr(), scales.data_ptr(), n, bits, _stream(g))
+    return words, scales
+
+
+def unpack_dequant(words: torch.Tensor, scales: torch.Tensor, n: int, bits: int = 8
+                   ) -> torch.Tensor:
+    """words int32 (n_p*bits/32,) and scales f32 (n_p/512,) on one CUDA
+    device -> the first n values, ``(code - levels) * (scale * f32(1/levels))``."""
+    _check_bits(bits)
+    check_operand("words", words, 1, words.device, torch.int32)
+    check_operand("scales", scales, 1, words.device)
+    rows = scales.shape[0]
+    n_p = rows * ref.WIRE_BLOCK
+    if words.shape[0] != n_p * bits // 32 or not 0 <= n_p - n < ref.WIRE_BLOCK:
+        raise ValueError(f"words {tuple(words.shape)} and scales {tuple(scales.shape)} "
+                         f"do not hold {n} {bits}-bit codes")
+    out = torch.empty((n,), dtype=torch.float32, device=words.device)
+    if n:
+        with torch.cuda.device(words.device):
+            _launch("unpack_dequant", "wire_unpack_dequant_f32", words.data_ptr(),
+                    scales.data_ptr(), out.data_ptr(), n, bits, _stream(words))
+    return out

@@ -126,9 +126,13 @@ def test_accountant_and_packing_exact(method):
 
 def test_unported_methods_raise():
     tpol = tpolicy.make_policy(GROUPS, min_params=4096)
-    for name in ("topk", "fedpaq", "signsgd", "fedqclip", "gradestc-ef"):
+    for name in ("topk", "gradestc-ef"):
         with pytest.raises(NotImplementedError):
             tcomp.make_method(name, policy=tpol)
+    # the flat baselines are ported
+    for name, cls in (("fedpaq", tcomp.FedPAQMethod), ("signsgd", tcomp.SignSGDMethod),
+                      ("fedqclip", tcomp.FedQClipMethod)):
+        assert isinstance(tcomp.make_method(name, policy=tpol), cls)
     for variant in ("first", "all", "k"):
         with pytest.raises(NotImplementedError):
             tcodecs.GradESTCCodec(tpol.plans["layers/w"], variant=variant)

@@ -4,7 +4,10 @@ the PRNG on CUDA against the same draws on the CPU.
 Tolerances: encode/decode, and encode_quant's E and decode_wire's Ghat,
 ``||kernel - plain||_F <= 1e-5 ||G||_F``; coeff_quant bit for bit;
 encode_quant's codes equal except by one where A/scale*127 sits within
-1e-4 of a half-integer; M = 0 exact; PRNG draws bit for bit.
+1e-4 of a half-integer; M = 0 exact; PRNG draws bit for bit; the sign and
+quantizer wire kernels (sign_pack, sign_unpack, quant_pack, unpack_dequant)
+bit for bit, at every flat group size of the TinyLlama-width slice and at
+ragged sizes.
 
 Every test here needs a CUDA card and skips without one (the kernels have
 no CPU mode).  The file imports neither jax nor the JAX package, so it runs
@@ -18,11 +21,16 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import dataclasses  # noqa: E402
+import math  # noqa: E402
+
 import numpy as np  # noqa: E402
 
+from repro_torch.configs.tinyllama_1_1b import CONFIG  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, wire  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.models import model  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -157,3 +165,95 @@ def test_cuda_wire_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         ops.coeff_quant(G[0])                         # no stack axis
     with pytest.raises(ValueError):
         ops.encode_quant(torch.zeros(1, 128, 65, device=cuda), G)   # k > 64
+
+
+def _flat_sizes():
+    """The flat group sizes of the TinyLlama-width slice (2 layers, vocab
+    4096), plus ragged ones."""
+    arch = dataclasses.replace(CONFIG, n_layers=2, vocab=4096, dtype="float32", remat=False)
+    sizes = {math.prod(s) * st for s, st in model.param_group_shapes(arch).values()}
+    return sorted(sizes) + [1, 31, 513, 70_001]
+
+
+def _flat(n, seed):
+    rng = np.random.default_rng(seed)
+    g = (rng.standard_t(3, size=n) * 1e-3).astype(np.float32)
+    g[::7] = 0.0
+    g[3::11] = -0.0
+    if n >= 1024:
+        g[512:1024] = 0.0
+    return g
+
+
+def _u32(words):
+    return words.long() & 0xFFFFFFFF
+
+
+def _same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("n", _flat_sizes())
+def test_cuda_sign_wire_bit_exact(cuda, n):
+    g = torch.from_numpy(_flat(n, seed=n)).to(cuda)
+    before = ops.launch_counts()
+    words, rowsums = wire.sign_pack(g)
+    rw, rs = tref.sign_pack_ref(g)
+    pad = (-n) % 512
+    rows = tref.pairwise_sum(torch.nn.functional.pad(g.abs(), (0, pad)).reshape(-1, 512))
+    assert torch.equal(_u32(words), rw) and _same_bits(rowsums, rows)
+    tw, ts = ops.sign_wire(g)
+    assert _same_bits(ts, rs) and _same_bits(ts.cpu(), tref.mean_abs_ref(g.cpu()))
+    out = wire.sign_unpack(words, ts, n)
+    assert _same_bits(out, tref.sign_unpack_ref(rw, rs, n))
+    assert bool((out[g == 0] == ts).all())
+    after = ops.launch_counts()
+    assert after["sign_pack"] == before["sign_pack"] + 2
+    assert after["sign_unpack"] == before["sign_unpack"] + 1
+
+
+@pytest.mark.parametrize("n,bits", [(n, 8) for n in _flat_sizes()] + [(70_001, 2), (70_001, 4),
+                                                                     (513, 2), (513, 4)])
+def test_cuda_quant_wire_bit_exact(cuda, n, bits):
+    g = torch.from_numpy(_flat(n, seed=n + bits)).to(cuda)
+    n_p = n + (-n) % 512
+    u = prng.uniform(prng.PRNGKey(n, cuda), (n_p,))
+    before = ops.launch_counts()
+    words, scales = wire.quant_pack(g, u, bits)
+    rw, rs = tref.quant_pack_ref(torch.nn.functional.pad(g, (0, n_p - n)), u, 512, bits)
+    assert torch.equal(_u32(words), rw) and _same_bits(scales, rs)
+    out = wire.unpack_dequant(words, scales, n, bits)
+    assert _same_bits(out, tref.unpack_dequant_ref(rw, rs, n_p, 512, bits)[:n])
+    after = ops.launch_counts()
+    assert after["quant_pack"] == before["quant_pack"] + 1
+    assert after["unpack_dequant"] == before["unpack_dequant"] + 1
+    # the dispatchers draw the same uniforms from the same key, on the card
+    key = prng.PRNGKey(n, cuda)
+    q = ops.quantize_update(g, key, bits=bits, use_pallas=True)
+    assert _same_bits(q, out)
+    assert _same_bits(q.cpu(), ops.quantize_update(g.cpu(), prng.PRNGKey(n, "cpu"), bits=bits,
+                                                   use_pallas=True))
+
+
+def test_cuda_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    g = torch.randn(1000, device=cuda)
+    u = torch.rand(1024, device=cuda)
+    key = prng.PRNGKey(0, cuda)
+    with pytest.raises(ValueError):
+        wire.quant_pack(g, u, 3)                            # bits not in {2, 4, 8}
+    with pytest.raises(ValueError):
+        ops.block_quant_wire(g, key, bits=3)
+    with pytest.raises(ValueError):
+        ops.block_quant_wire(g, key, block=256)
+    with pytest.raises(ValueError):
+        wire.quant_pack(g, u[:1000])                        # u not over the padded length
+    with pytest.raises(ValueError):
+        wire.quant_pack(g, u.cpu())                         # CPU/CUDA mix
+    with pytest.raises(ValueError):
+        ops.sign_unwire(*wire.sign_pack(g)[:1], torch.ones((), device="cpu"), 1000)
+    with pytest.raises(ValueError):
+        wire.sign_pack(g[::2])                              # non-contiguous
+    with pytest.raises(TypeError):
+        wire.sign_pack(g.double())
+    with pytest.raises(ValueError):
+        ops.quantize_update(g, key, use_pallas=False)       # no plain path on the card

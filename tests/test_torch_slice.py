@@ -76,4 +76,7 @@ def test_unported_options_raise():
         tsim.run_fl(tsim.FLConfig(engine="scan", **cfg))
     with pytest.raises(ValueError):
         tsim.run_fl(tsim.FLConfig(use_pallas=False, **{**cfg, "device": "cuda"}))
+    with pytest.raises(ValueError):        # the global quantizer has no card path
+        tsim.run_fl(tsim.FLConfig(method="fedpaq", use_pallas=False,
+                                  **{**cfg, "device": "cuda"}))
     assert tsim.FLConfig().device == "cuda" and tsim.FLConfig().engine == "loop"
