@@ -9,8 +9,8 @@ script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
 2. build: compile ``src/repro_torch/kernels/csrc/*.cu`` (``gradestc.cu``,
-   ``quant_wire.cu``) with one nvcc each, in parallel, into one library;
-   ptxas registers and spills of every kernel;
+   ``quant_wire.cu``, ``flash_attention.cu``) with one nvcc each, in
+   parallel, into one library; ptxas registers and spills of every kernel;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card
    at the main path's shapes (and a ragged one): encode, decode,
    encode_quant's E and decode_wire's Ghat within ``||diff||_F <= 1e-5
@@ -18,23 +18,38 @@ script exits non-zero:
    by one where A/scale*127 sits within 1e-4 of a half-integer, and the
    exact M = 0 cases; the quantizer wire (sign_pack, sign_unpack,
    quant_pack, unpack_dequant) bit for bit at each flat group size and a
-   ragged one (8 bits, and 2 and 4 on the ragged size); CUDA-event times
-   (median of 20 after warm-up) of the kernel, the plain version and the
-   library call, beside the data-sheet bound, and of the quantizer's
-   uniform draw;
+   ragged one (8 bits, and 2 and 4 on the ragged size); block_quant and
+   block_dequant bit for bit at each flat group size and the ragged one,
+   at bits 3, 5, 6 and 7 with 512-value blocks and bits 6 with 256, and the
+   6-bit wire route against its oracle; coeff_dequant bit for bit at the
+   SVDFed-int8 group shapes, and decode(M, coeff_dequant(codes, scales))
+   against decode_wire(M, codes, scales); flash_attention at TinyLlama's
+   eval shape (causal; also non-causal, and with bf16 inputs) and at
+   Gemma3-1B's (window 512 and window 0), within rtol = atol = 1e-4 in f32
+   and 5e-2 in bf16; CUDA-event times (median of 20 after warm-up) of the
+   kernel, the plain version and the library call (cuBLAS for the GEMM
+   kernels, ``scaled_dot_product_attention`` for flash), beside the
+   data-sheet bound, and of the quantizer's uniform draw;
 4. slice: ``run_fl`` (loop engine) at TinyLlama-1.1B width, cut to 2
    layers and a 4096 vocab, for gradestc on the f32, int8 and bf16 wires,
-   svdfed on the f32, bf16 and int8 wires, signsgd, fedpaq, fedqclip, then
-   fedavg; the counts of all nine kernels (set to 0 just before each run,
-   read just after), uplink bits (the flat codecs' against their closed
-   form), eval loss, ms/round and peak memory; every host sync of each run
-   (torch's sync debug mode), by the port's source line that made it: only
-   ``host_fetch`` (one per round and per eval) and cuSOLVER's error checks
-   in ``core/rsvd.py`` (gradestc and svdfed) may sync;
+   svdfed on the f32, bf16 and int8 wires, signsgd, fedpaq (8 and 6 bits),
+   fedqclip, then fedavg; and at Gemma3-1B width, cut to 6 layers (one
+   5:1 local:global pattern) and a 4096 vocab at seq 1024, for gradestc
+   and fedavg; the counts of all thirteen kernels (set to 0 just before
+   each run, read just after; flash_attention exactly n_layers x
+   eval_batches per eval, none in local training), uplink bits (the flat
+   codecs' against their closed form), eval loss, ms/round and peak
+   memory; every host sync of each run (torch's sync debug mode), by the
+   port's source line that made it: only ``host_fetch`` (one per round and
+   per eval) and cuSOLVER's error checks in ``core/rsvd.py`` (gradestc and
+   svdfed) may sync;
 5. card vs CPU: a small config through the port on both, for every method
    and wire of phase 4 (the CPU side with ``use_pallas=True``, the card's
-   block-local quantizer wire); per-round uplink equal, eval loss within
-   the CPU parity tests' tolerance (5e-4 absolute for fedpaq and fedqclip).
+   block-local quantizer wire), and gradestc on Gemma3-1B's reduced config
+   at seq 32 (its 16-token window masks); per-round uplink equal, eval loss
+   within the CPU parity tests' tolerance (5e-4 absolute for fedpaq and
+   fedqclip).  The card's eval forward runs the flash kernel, the CPU's the
+   plain attention.
 
 ``python3 chip_smoke.py --profile [METHOD]`` adds, after phase 4, a run of
 METHOD (gradestc unless named; any method of phase 4) whose round 1 is
@@ -77,22 +92,33 @@ SCALE_RTOL = 1e-6         # encode_quant's scales (max |A| of its own GEMM)
 #: the reference's own tolerance for these codecs across its engines
 QUANT_LOSS_ATOL = 5e-4
 
-#: phase 4's runs: (label, method, wire_dtype or None)
-SLICE_RUNS = (("gradestc", "gradestc", "f32"), ("gradestc-int8", "gradestc", "int8"),
-              ("gradestc-bf16", "gradestc", "bf16"), ("svdfed", "svdfed", "f32"),
-              ("svdfed-bf16", "svdfed", "bf16"), ("svdfed-int8", "svdfed", "int8"),
-              ("signsgd", "signsgd", None), ("fedpaq", "fedpaq", None),
-              ("fedqclip", "fedqclip", None), ("fedavg", "fedavg", None))
+#: flash attention against its plain version: the JAX tests' tolerances
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+#: phase 4's runs: (label, method, method_kw); TinyLlama width, then Gemma3
+SLICE_RUNS = (("gradestc", "gradestc", {"wire_dtype": "f32"}),
+              ("gradestc-int8", "gradestc", {"wire_dtype": "int8"}),
+              ("gradestc-bf16", "gradestc", {"wire_dtype": "bf16"}),
+              ("svdfed", "svdfed", {"wire_dtype": "f32"}),
+              ("svdfed-bf16", "svdfed", {"wire_dtype": "bf16"}),
+              ("svdfed-int8", "svdfed", {"wire_dtype": "int8"}),
+              ("signsgd", "signsgd", {}), ("fedpaq", "fedpaq", {}),
+              ("fedpaq-6bit", "fedpaq", {"bits": 6}), ("fedqclip", "fedqclip", {}),
+              ("fedavg", "fedavg", {}))
+GEMMA_RUNS = (("gemma3-gradestc", "gradestc", {}), ("gemma3-fedavg", "fedavg", {}))
 #: the flat codecs compress every group; the others the policy's compressed ones
 FLAT_METHODS = ("signsgd", "fedpaq", "fedqclip")
-#: the kernels each run must launch (once per codec group per client per
-#: round); every other kernel stays at zero
+#: the codec kernels each run must launch (once per codec group per client
+#: per round); flash_attention runs in every eval forward; every other
+#: kernel stays at zero
 RUN_KERNELS = {"gradestc": ("encode", "decode"), "gradestc-bf16": ("encode", "decode"),
                "gradestc-int8": ("encode", "decode", "coeff_quant"),
                "svdfed-int8": ("encode_quant", "decode_wire"),
                "signsgd": ("sign_pack", "sign_unpack"),
                "fedpaq": ("quant_pack", "unpack_dequant"),
-               "fedqclip": ("quant_pack", "unpack_dequant")}
+               "fedpaq-6bit": ("block_quant", "block_dequant"),
+               "fedqclip": ("quant_pack", "unpack_dequant"),
+               "gemma3-gradestc": ("encode", "decode")}
 
 
 def log(phase: str, msg: str) -> None:
@@ -164,6 +190,15 @@ def slice_arch():
 
     return dataclasses.replace(CONFIG, n_layers=2, vocab=4096, dtype="float32",
                                remat=False)
+
+
+def gemma_arch():
+    """Gemma3-1B at full width, cut to 6 layers (one whole 5:1 local:global
+    pattern, so both kinds of layer run), a 4096 vocab, f32."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("gemma3-1b"), n_layers=6, vocab=4096,
+                               dtype="float32", remat=False)
 
 
 def small_arch():
@@ -423,6 +458,205 @@ def phase_quant_kernels(flat_counts, ragged: int = 70_001):
     return tot, bound_by, uniform_ms
 
 
+def phase_block_quant_kernels(flat_counts, ragged: int = 70_001):
+    """Check block_quant and block_dequant bit for bit against their plain
+    versions at every flat group size and a ragged one, at bits 3, 5, 6 and
+    7 with 512-value blocks and bits 6 with 256, and the 6-bit wire route
+    (``ops.block_quant_wire``/``block_dequant_wire``) against its oracle;
+    time both kernels at 6 bits and 512 (the fedpaq-6bit run), summed over
+    one client's round like ``phase_kernels``."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops, quant, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    names = ("block_quant", "block_dequant")
+    tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0, err=0.0) for k in names}
+    bound_by = {}
+
+    def same(a, b):
+        return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+    for n in sorted(flat_counts) + [ragged]:
+        g = torch.randn(n, device="cuda", generator=gen) * 1e-3
+        g[::7] = 0.0
+        key = prng.PRNGKey(n + 1, "cuda")
+        ok = {}
+        for bits, block in ((3, 512), (5, 512), (6, 512), (7, 512), (6, 256)):
+            pad = (-n) % block
+            n_p = n + pad
+            u = prng.uniform(key, (n_p,))
+            gp = F.pad(g, (0, pad))
+            c, sc = quant.block_quant(g, u, block, bits)
+            rc, rsc = ref.block_quant_ref(gp, u, block, bits)
+            d = quant.block_dequant(c, sc, n, block, bits)
+            rd = ref.block_dequant_ref(rc, rsc, block, bits)[:n]
+            ok[f"{bits}/{block}"] = torch.equal(c, rc) and same(sc, rsc) and same(d, rd)
+            tot["block_quant"]["err"] = max(tot["block_quant"]["err"],
+                                            float((c.int() - rc.int()).abs().max()),
+                                            float((sc - rsc).abs().max()))
+            tot["block_dequant"]["err"] = max(tot["block_dequant"]["err"],
+                                              float((d - rd).abs().max()))
+        # the 6-bit wire route: block_quant, bias, integer pack, and back
+        words, scales, pad = ops.block_quant_wire(g, key, bits=6)
+        rw, rs = ref.quant_pack_ref(F.pad(g, (0, pad)), prng.uniform(key, (n + pad,)), 512, 6)
+        back = ops.block_dequant_wire(words, scales, pad, bits=6)
+        ok["wire/6"] = (torch.equal(words.long() & 0xFFFFFFFF, rw) and same(scales, rs)
+                        and same(back, ref.unpack_dequant_ref(rw, rs, n + pad, 512, 6)[:n]))
+        torch.cuda.synchronize()
+        if not all(ok.values()):
+            raise AssertionError(f"block quantizer kernel differs from its plain version at "
+                                 f"n={n}: {ok}")
+        pad = (-n) % 512
+        n_p, rows = n + pad, (n + pad) // 512
+        u = prng.uniform(key, (n_p,))
+        gp = F.pad(g, (0, pad))
+        c, sc = quant.block_quant(g, u, 512, 6)
+        t = {"block_quant": (time_ms(lambda: quant.block_quant(g, u, 512, 6)),
+                             time_ms(lambda: ref.block_quant_ref(gp, u, 512, 6))),
+             "block_dequant": (time_ms(lambda: quant.block_dequant(c, sc, n, 512, 6)),
+                               time_ms(lambda: ref.block_dequant_ref(c, sc, 512, 6)[:n]))}
+        # bytes: g and u read, codes and scales written (and back: codes and
+        # scales read, n f32 written); operations: a few FP32 ops per value
+        b = {"block_quant": bound_ms(4 * n + 4 * n_p + n_p + 4 * rows, 8 * n_p),
+             "block_dequant": bound_ms(n_p + 4 * rows + 4 * n, 2 * n)}
+        w = flat_counts.get(n, 0)
+        log("kernels", f"n={n} block quantizer bit-exact {ok}, launches/client-round {w}")
+        for name in names:
+            (ms, plain), (bms, by) = t[name], b[name]
+            bound_by[name] = by
+            log("kernels", f"  {name} (6 bits): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                           f"library none, bound {bms:.4f} ms ({by})")
+            row = tot[name]
+            row["ms"] += w * ms
+            row["plain_ms"] += w * plain
+            row["bound_ms"] += w * bms
+    return tot, bound_by
+
+
+def phase_coeff_dequant(shapes, group_counts):
+    """Check coeff_dequant bit for bit against its plain version at the
+    SVDFed-int8 group shapes (codes and scales from coeff_quant of A = M^T
+    G), and decode(M, coeff_dequant(codes, scales)) against
+    decode_wire(M, codes, scales); time it, summed over one client's round
+    as if each group called it once (no path calls it)."""
+    from repro_torch.kernels import gradestc_decode, ref, wire
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    row = dict(ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0, err=0.0)
+    by = "bytes"
+    for shape in shapes:
+        L, l, m, k = shape
+        M = torch.linalg.qr(torch.randn(L, l, k, device="cuda", generator=gen)).Q.contiguous()
+        G = torch.randn(L, l, m, device="cuda", generator=gen) * 1e-3
+        codes, scales, ship = wire.coeff_quant(torch.matmul(M.mT, G))
+        out = wire.coeff_dequant(codes, scales)
+        rout = ref.coeff_dequant_ref(codes, scales)
+        via = gradestc_decode.decode(M, out)
+        fused = gradestc_decode.decode_wire(M, codes, scales)
+        torch.cuda.synchronize()
+        exact = torch.equal(out.view(torch.int32), rout.view(torch.int32))
+        ship_exact = torch.equal(out.view(torch.int32), ship.view(torch.int32))
+        dec_equal = torch.equal(via.view(torch.int32), fused.view(torch.int32))
+        dec_err = float((via - fused).abs().max())
+        log("kernels", f"L={L} k={k} m={m} coeff_dequant bit-exact={exact} (= coeff_quant's "
+                       f"ship: {ship_exact}); decode(M, coeff_dequant) vs decode_wire: "
+                       f"bit-equal={dec_equal} max abs diff {dec_err:.3e}")
+        if not (exact and ship_exact and dec_equal):
+            raise AssertionError(f"coeff_dequant at {shape}: exact={exact} ship={ship_exact} "
+                                 f"decode vs decode_wire equal={dec_equal} ({dec_err:.3e})")
+        ms = time_ms(lambda: wire.coeff_dequant(codes, scales))
+        plain = time_ms(lambda: ref.coeff_dequant_ref(codes, scales))
+        n_coef = L * k * m
+        bms, by = bound_ms(n_coef + 4 * scales.numel() + 4 * n_coef, 2 * n_coef)
+        w = group_counts.get(shape, 0)
+        log("kernels", f"  coeff_dequant: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                       f"library none, bound {bms:.4f} ms ({by}), groups {w}")
+        row["err"] = max(row["err"], float((out - rout).abs().max()))
+        row["ms"] += w * ms
+        row["plain_ms"] += w * plain
+        row["bound_ms"] += w * bms
+    return row, by
+
+
+def visible_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs a head attends to under the mask."""
+    q = torch.arange(Sq)[:, None]
+    kp = torch.arange(Skv)[None, :]
+    ok = torch.ones(Sq, Skv, dtype=torch.bool)
+    if causal:
+        ok &= kp <= q
+    if window > 0:
+        ok &= kp > q - window
+    return int(ok.sum())
+
+
+def phase_flash():
+    """Check flash_attention against its plain version (GQA over repeated
+    K/V) at TinyLlama's eval shape and Gemma3-1B's, and time it beside the
+    plain version and scaled_dot_product_attention with the same mask.
+    Returns the JSON row's numbers at TinyLlama's eval shape (per call)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = (("tinyllama", (4, 256, 32, 4, 64), True, 0, torch.float32),
+             ("tinyllama non-causal", (4, 256, 32, 4, 64), False, 0, torch.float32),
+             ("tinyllama bf16", (4, 256, 32, 4, 64), True, 0, torch.bfloat16),
+             ("gemma3 window 512", (2, 1024, 4, 1, 256), True, 512, torch.float32),
+             ("gemma3 window 0", (2, 1024, 4, 1, 256), True, 0, torch.float32))
+    main = None
+    for label, (B, S, H, KV, hd), causal, window, dt in cases:
+        q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dt)
+        k = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dt)
+        v = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dt)
+        out = flash_attention.flash_attention(q, k, v, causal=causal, window=window)
+        plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dt]
+        err = float((out.float() - plain.float()).abs().max())
+        ok = torch.allclose(out.float(), plain.float(), rtol=tol, atol=tol)
+        log("kernels", f"flash {label} B={B} S={S} H={H} KV={KV} hd={hd} causal={causal} "
+                       f"window={window} {dt}: max abs err {err:.3e} (tol {tol}) ok={ok}")
+        if not ok:
+            raise AssertionError(f"flash_attention differs from its plain version: {label}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        mask = None                   # True = attend; only a window needs one
+        if window > 0:
+            qi = torch.arange(S, device="cuda")[:, None]
+            ki = torch.arange(S, device="cuda")[None, :]
+            mask = ki > qi - window
+            if causal:
+                mask &= ki <= qi
+        sdpa_kw = dict(attn_mask=mask, is_causal=causal and mask is None)
+        try:
+            F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa_kw)
+            sdpa_kw["enable_gqa"] = True
+            kr, vr = kt, vt
+        except TypeError:             # no enable_gqa in this torch: K/V repeated
+            kr, vr = (x.repeat_interleave(H // KV, dim=1) for x in (kt, vt))
+
+        def lib_fn():
+            return F.scaled_dot_product_attention(qt, kr, vr, **sdpa_kw)
+
+        ms = time_ms(lambda: flash_attention.flash_attention(q, k, v, causal=causal,
+                                                             window=window))
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                                           window=window))
+        lib_ms = time_ms(lib_fn)
+        esize = q.element_size()
+        flops = 4 * B * H * hd * visible_pairs(S, S, causal, window)
+        bms, by = bound_ms(esize * (2 * q.numel() + k.numel() + v.numel()), flops)
+        log("kernels", f"  flash_attention: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                       f"library (sdpa) {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+                       f"{flops / ms / 1e9:.2f} TFLOP/s")
+        if main is None:
+            main = (dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, err=err), by)
+    return main
+
+
 def check_syncs(label: str, method: str, sites, fetches: int, expect_fetches: int) -> None:
     """Print a run's host syncs by site; fail unless ``host_fetch`` made
     exactly its counted fetches and every other sync is cuSOLVER's error
@@ -436,10 +670,6 @@ def check_syncs(label: str, method: str, sites, fetches: int, expect_fetches: in
     if fetch_syncs != fetches or fetches != expect_fetches or bad:
         raise AssertionError(f"{label}: unexpected host syncs {bad}, host_fetch "
                              f"{fetch_syncs}/{fetches}/{expect_fetches}")
-
-
-def method_kw(wire_dtype):
-    return {"method_kw": {"wire_dtype": wire_dtype}} if wire_dtype else {}
 
 
 def run_slice(method: str, arch, device: str, progress=None, **kw):
@@ -539,31 +769,56 @@ def main() -> int:
     qtot, qbound_by, uniform_ms = phase_quant_kernels(flat_counts)
     tot.update(qtot)
     bound_by.update(qbound_by)
+    btot, bbound_by = phase_block_quant_kernels(flat_counts)
+    tot.update(btot)
+    bound_by.update(bbound_by)
+    tot["coeff_dequant"], bound_by["coeff_dequant"] = phase_coeff_dequant(shapes, group_counts)
+    tot["flash_attention"], bound_by["flash_attention"] = phase_flash()
     log("kernels", f"kernels: gradestc_encode, gradestc_decode, coeff_quant, encode_quant, "
                    f"decode_wire ({sum(group_counts.values())} launches each per client-round "
                    f"on the runs that use them); sign_pack, sign_unpack, quant_pack, "
-                   f"unpack_dequant ({sum(flat_counts.values())} each)")
-    log("kernels", "quantizer wire per client-round (8 bits): " + ", ".join(
-        f"{k} {qtot[k]['ms']:.4f} ms (plain {qtot[k]['plain_ms']:.4f}, bound "
-        f"{qtot[k]['bound_ms']:.4f})" for k in qtot)
+                   f"unpack_dequant, block_quant, block_dequant "
+                   f"({sum(flat_counts.values())} each); coeff_dequant (no path); "
+                   f"flash_attention (n_layers x eval batches per eval)")
+    log("kernels", "quantizer wire per client-round (8 bits; block quantizer 6 bits): " + ", ".join(
+        f"{k} {tot[k]['ms']:.4f} ms (plain {tot[k]['plain_ms']:.4f}, bound "
+        f"{tot[k]['bound_ms']:.4f})" for k in (*qtot, *btot))
         + f"; uniform draws {uniform_ms:.4f} ms")
     log("kernels", "clocks/power after timing: "
         + nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
 
-    # ---- 4. the slice at TinyLlama width, every method and wire
+    # ---- 4. the slice at TinyLlama and Gemma3 width, every method and wire
     n_clients, rounds = 4, 3
     kw = dict(n_clients=n_clients, participation=1.0, rounds=rounds, local_steps=2,
               batch=4, seq=256, eval_every=1)
+    gemma = gemma_arch()
+    gemma_kw = {**kw, "batch": 2, "seq": 1024}
+    gemma_policy = make_policy(model.param_group_shapes(gemma), min_params=4096)
     launches = {}
     runs = {}
-    for label, method, wire_dtype in SLICE_RUNS:
-        groups = len(policy.plans) if method in FLAT_METHODS else sum(group_counts.values())
+    for label, method, mkw in SLICE_RUNS + GEMMA_RUNS:
+        a, pol, rkw = (gemma, gemma_policy, gemma_kw) if label.startswith("gemma3") else (
+            arch, policy, kw)
+        groups = (len(pol.plans) if method in FLAT_METHODS
+                  else sum(p.compress for p in pol.plans.values()))
         expect = groups * n_clients * rounds
+        flash_per_eval = a.n_layers * 4          # FLConfig.eval_batches
+        flash_seen = []
+
+        def after_eval(rnd, _):
+            # eval_every=1: round rnd's eval is the (rnd+1)-th; local training
+            # ran in between, and must have launched no flash
+            flash_seen.append(ops.launch_counts()["flash_attention"])
+            if flash_seen[-1] != flash_per_eval * len(flash_seen):
+                raise AssertionError(f"{label}: {flash_seen[-1]} flash launches after "
+                                     f"{len(flash_seen)} evals, expected "
+                                     f"{flash_per_eval * len(flash_seen)}")
+
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         metrics.reset_host_sync_count()
         with SyncCounter() as syncs:
-            res = run_slice(method, arch, "cuda", **method_kw(wire_dtype), **kw)
+            res = run_slice(method, a, "cuda", progress=after_eval, method_kw=mkw, **rkw)
             torch.cuda.synchronize()
         launches[label] = ops.launch_counts()
         runs[label] = res
@@ -573,45 +828,59 @@ def main() -> int:
         log("slice", f"{label}: ms/round(rounds 1-2) {ms_round:.1f} "
                      f"uplink bytes {res.ledger.uplink_total:.0f} per-round "
                      f"{res.ledger.per_round_uplink} eval loss {res.eval_loss} "
-                     f"launches {launches[label]} "
+                     f"launches {launches[label]} flash after each eval {flash_seen} "
                      f"max_memory_allocated {torch.cuda.max_memory_allocated()} B "
                      f"wall {res.wall_s:.1f} s")
         if not all(math.isfinite(x) for x in res.eval_loss):
             raise AssertionError(f"{label}: non-finite eval loss {res.eval_loss}")
         want = {name: expect if name in RUN_KERNELS.get(label, ()) else 0 for name in ops.KERNELS}
-        if launches[label] != want:
+        want["flash_attention"] = flash_per_eval * len(res.eval_rounds)
+        if launches[label] != want or len(flash_seen) != len(res.eval_rounds):
             raise AssertionError(f"{label}: launch counts {launches[label]}, expected {want}")
-    n_params = sum(math.prod(shape) * stack
-                   for shape, stack in model.param_group_shapes(arch).values())
-    raw_bits = 32 * n_params * n_clients * rounds
-    if n_params != 104_867_840 or runs["fedavg"].ledger.uplink_bits != raw_bits:
-        raise AssertionError(f"fedavg uplink {runs['fedavg'].ledger.uplink_bits} bits, "
-                             f"params {n_params}, expected {raw_bits}")
     bits = {label: r.ledger.uplink_bits for label, r in runs.items()}
+    for fedavg, a, n_expect in (("fedavg", arch, 104_867_840),
+                                ("gemma3-fedavg", gemma, 165_755_520)):
+        n_params = sum(math.prod(shape) * stack
+                       for shape, stack in model.param_group_shapes(a).values())
+        raw = 32 * n_params * n_clients * rounds
+        if n_params != n_expect or bits[fedavg] != raw:
+            raise AssertionError(f"{fedavg} uplink {bits[fedavg]} bits, params {n_params}, "
+                                 f"expected {raw}")
+        if fedavg == "fedavg":
+            raw_bits = raw
+        elif not bits["gemma3-gradestc"] < raw:
+            raise AssertionError(f"gemma3-gradestc uplink {bits['gemma3-gradestc']} >= {raw}")
     if not bits["gradestc-int8"] < bits["gradestc"] < raw_bits:
         raise AssertionError(f"uplink bits do not fall int8 < f32 < fedavg: {bits}")
     sizes = [plan.raw_scalars for plan in policy.plans.values()]
     closed = {"signsgd": sum(n + 32 for n in sizes),
-              "fedpaq": sum(8 * n + 32 * -(-n // 512) for n in sizes)}
+              "fedpaq": sum(8 * n + 32 * -(-n // 512) for n in sizes),
+              "fedpaq-6bit": sum(6 * n + 32 * -(-n // 512) for n in sizes)}
     closed["fedqclip"] = closed["fedpaq"]
     for label, per_client in closed.items():
         if not bits[label] == per_client * n_clients * rounds < raw_bits:
             raise AssertionError(f"{label}: uplink {bits[label]} bits, closed form "
                                  f"{per_client * n_clients * rounds}, fedavg {raw_bits}")
+    gemma_ratio = bits["gemma3-gradestc"] / bits["gemma3-fedavg"]
     log("slice", "uplink / fedavg: " + ", ".join(
-        f"{label} {b / raw_bits:.4f}" for label, b in bits.items()))
+        f"{label} {b / raw_bits:.4f}" for label, b in bits.items()
+        if not label.startswith("gemma3")) + f"; gemma3-gradestc / gemma3-fedavg {gemma_ratio:.4f}")
     if profile_run:
         phase_profile(profile_method, arch, kw)
 
     # ---- 5. card vs CPU at a small config, both through the port
+    from repro_torch.configs import get_config
+
     small = dict(rounds=3, n_clients=3, local_steps=1, batch=2, seq=16, eval_every=2)
-    for label, method, wire_dtype in SLICE_RUNS:
-        mkw = method_kw(wire_dtype)
-        gpu = run_slice(method, small_arch(), "cuda", **small, **mkw)
+    parity = [(label, method, mkw, small_arch(), small) for label, method, mkw in SLICE_RUNS]
+    parity.append(("gemma3-reduced gradestc", "gradestc", {}, get_config("gemma3-1b").reduced(),
+                   {**small, "seq": 32}))
+    for label, method, mkw, a, skw in parity:
+        gpu = run_slice(method, a, "cuda", method_kw=mkw, **skw)
         # the CPU runs the card's block-local quantizer wire when asked
-        cpu = run_slice(method, small_arch(), "cpu", use_pallas=True, **small, **mkw)
-        rel = max(abs(a - b) / abs(b) for a, b in zip(gpu.eval_loss, cpu.eval_loss))
-        dif = max(abs(a - b) for a, b in zip(gpu.eval_loss, cpu.eval_loss))
+        cpu = run_slice(method, a, "cpu", use_pallas=True, method_kw=mkw, **skw)
+        rel = max(abs(x - y) / abs(y) for x, y in zip(gpu.eval_loss, cpu.eval_loss))
+        dif = max(abs(x - y) for x, y in zip(gpu.eval_loss, cpu.eval_loss))
         log("parity", f"{label}: uplink/round card {gpu.ledger.per_round_uplink} "
                       f"cpu {cpu.ledger.per_round_uplink}; eval loss card {gpu.eval_loss} "
                       f"cpu {cpu.eval_loss} max rel diff {rel:.3e} abs {dif:.3e}")
@@ -643,14 +912,27 @@ def main() -> int:
             ("quant_pack", "quant_pack", "src/repro/kernels/wire.py:162", "fedpaq",
              "quant_wire.cu"),
             ("unpack_dequant", "unpack_dequant", "src/repro/kernels/wire.py:206", "fedpaq",
-             "quant_wire.cu")):
+             "quant_wire.cu"),
+            ("coeff_dequant", "coeff_dequant", "src/repro/kernels/wire.py:276", None,
+             "quant_wire.cu"),
+            ("block_quant", "block_quant", "src/repro/kernels/quant.py:56", "fedpaq-6bit",
+             "quant_wire.cu"),
+            ("block_dequant", "block_dequant", "src/repro/kernels/quant.py:107", "fedpaq-6bit",
+             "quant_wire.cu"),
+            ("flash_attention", "flash_attention", "src/repro/kernels/flash_attention.py:76",
+             "gradestc", "flash_attention.cu")):
         t = tot[name]
-        rows.append({
+        row = {
             "name": row_name, "route": "cuda", "source": csrc + src, "replaces": replaces,
-            "launches": launches[run][name], "max_abs_err": t["err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": bound_by[name],
-            "library_ms": t["library_ms"],
-        })
+            "launches": launches[run][name] if run else 0, "max_abs_err": t["err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": bound_by[name], "library_ms": t["library_ms"],
+        }
+        if run is None:
+            row["path"] = "kernel phase only"
+        if name == "flash_attention":
+            row["per"] = "call at TinyLlama's eval shape (4, 256, 32, 4, 64), causal, f32"
+        rows.append(row)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

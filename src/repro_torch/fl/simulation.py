@@ -13,8 +13,10 @@ The port runs on ``FLConfig.device`` ("cuda" by default).  Methods:
 ``method_kw={"wire_dtype": "f32" | "bf16" | "int8"}``; and the flat
 baselines ``signsgd``, ``fedpaq`` and ``fedqclip``.  On the card GradESTC's
 projection, reconstruction and int8 wire, SVDFed's int8 uplink and the
-sign and quantizer wires run the hand-written CUDA kernels; there is no
-plain path there.  ``use_pallas`` resolves as in the reference: ``None``
+sign and quantizer wires (at every width from 2 to 8 bits) run the
+hand-written CUDA kernels, and so does the eval forward's attention (the
+flash kernel; local training keeps the plain attention); there is no plain
+path there.  ``use_pallas`` resolves as in the reference: ``None``
 means the kernels on the card and the plain versions on the CPU, where
 FedPAQ/FedQClip then run the paper's global quantizer and
 ``use_pallas=True`` gives the card's block-local wire.  The fused K-round

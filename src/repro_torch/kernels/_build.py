@@ -25,7 +25,9 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
-__all__ = ["load", "BUILD_ROOT", "NVCC_FLAGS", "last_build", "launches"]
+import torch
+
+__all__ = ["load", "launch", "stream", "BUILD_ROOT", "NVCC_FLAGS", "last_build", "launches"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -35,6 +37,7 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 #: C signatures of the library's entry points
 _SIGNATURES = {
     "gradestc_encode_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -46,6 +49,10 @@ _SIGNATURES = {
     "wire_sign_unpack_f32": [_P, _P, _P, _L, _P],
     "wire_quant_pack_f32": [_P, _P, _P, _P, _L, _I, _P],
     "wire_unpack_dequant_f32": [_P, _P, _P, _L, _I, _P],
+    "quant_block_quant_f32": [_P, _P, _P, _P, _L, _I, _I, _P],
+    "quant_block_dequant": [_P, _P, _P, _L, _I, _I, _I, _P],
+    "wire_coeff_dequant_f32": [_P, _P, _P, _L, _I, _P],
+    "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -133,3 +140,18 @@ def load() -> ctypes.CDLL:
         getattr(lib, fn).restype = ctypes.c_int
     _LIB = lib
     return lib
+
+
+def launch(name: str, fn: str, *args) -> None:
+    """Call the library's entry point ``fn`` and count one launch of kernel
+    ``name``; raise if the launch failed (the entry points return
+    ``cudaGetLastError()``)."""
+    rc = getattr(load(), fn)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")
+    launches[name] += 1
+
+
+def stream(x: torch.Tensor) -> int:
+    """The current CUDA stream of ``x``'s device, as the entry points take it."""
+    return torch.cuda.current_stream(x.device).cuda_stream

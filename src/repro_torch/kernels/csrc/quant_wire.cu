@@ -1,5 +1,6 @@
-// Quantizer wire kernels for Hopper (sm_90a): the signSGD sign wire and the
-// FedPAQ / FedQClip block-quantizer wire, with a plain C interface loaded
+// Quantizer wire kernels for Hopper (sm_90a): the signSGD sign wire, the
+// FedPAQ / FedQClip block-quantizer wire, the unpacked block quantizer and
+// the int8 coefficient wire's dequantization, with a plain C interface loaded
 // through ctypes (see kernels/_build.py, which compiles every .cu here into
 // one library).
 //
@@ -14,22 +15,35 @@
 //                 32/bits to a word: words (n_p*bits/32,), scales (n_p/512,)
 // unpack_dequant: words, scales -> (code - levels) * (scale * f32(1/levels)),
 //                 the first n values
+// block_quant:    quant_pack's arithmetic on rows of any `block` values and
+//                 any bits from 2 to 8, without the bias and the pack:
+//                 g (n,) zero padded to n_p = ceil(n/block)*block, u (n_p,)
+//                 -> codes (n_p,) int8, scales (n_p/block,) f32
+// block_dequant:  codes (n_p,) int8, scales -> code * (scale * f32(1/levels)),
+//                 the first n values, in f32, bf16 or f16 (rounded once)
+// coeff_dequant:  codes (L, k, m) int8, scales (L, k, ceil(m/512)) ->
+//                 code * (scale * INV127), (L, k, m) f32
 //
 // Words are uint32 in the canonical layout (code i -> word i / cpw, shift
-// (i % cpw) * bits, cpw = 32 / bits); bits is 2, 4 or 8 for the quantizer.
-// Every kernel launches on the caller's stream, allocates nothing and
-// returns cudaGetLastError().
+// (i % cpw) * bits, cpw = 32 / bits); bits is 2, 4 or 8 for quant_pack and
+// unpack_dequant.  Every kernel launches on the caller's stream, allocates
+// nothing and returns cudaGetLastError().
 //
 // Replaces (JAX/Pallas TPU reference):
 //   sign_pack      -> src/repro/kernels/wire.py::sign_pack_pallas
 //   sign_unpack    -> src/repro/kernels/wire.py::sign_unpack_pallas
 //   quant_pack     -> src/repro/kernels/wire.py::quant_pack_pallas
 //   unpack_dequant -> src/repro/kernels/wire.py::unpack_dequant_pallas
+//   block_quant    -> src/repro/kernels/quant.py::block_quant_pallas
+//   block_dequant  -> src/repro/kernels/quant.py::block_dequant_pallas
+//   coeff_dequant  -> src/repro/kernels/wire.py::coeff_dequant_pallas
 //
-// What bounds them on an H100 SXM (3.35 TB/s): all four are single passes
+// What bounds them on an H100 SXM (3.35 TB/s): all seven are single passes
 // that do a few operations per value, so HBM bandwidth.  quant_pack reads 8
 // bytes per value (g and u) and writes bits/8; sign_pack reads 4 and writes
-// 1/8; the unpackers read 1/8 or bits/8 and write 4.
+// 1/8; the unpackers read 1/8 or bits/8 and write 4.  block_quant reads 8 and
+// writes 1 (plus a scale per block); block_dequant and coeff_dequant read 1
+// and write 4 (2 for a bf16 or f16 output).
 //
 // Results must equal the plain versions (kernels/ref.py) bit for bit:
 //   * sign_pack's row sum follows ref.pairwise_sum's tree: a warp owns a row,
@@ -38,25 +52,35 @@
 //     levels (adjacent pairs first; f32 addition is commutative, so both
 //     lanes of a pair hold the same sum), and the 16 partials are then added
 //     pairwise.  __ballot_sync(g < 0) of step j is word j of the row.
-//   * quant_pack divides with __fdiv_rn and multiplies with __fmul_rn, so
-//     nvcc cannot contract x * levels - floor(x) into an FMA (the reference
-//     rounds the product first); max|g| is exact in any order.
-//   * unpack_dequant multiplies the integer code by scale * f32(1/levels),
-//     that product rounded once.
+//   * quant_pack and block_quant divide with __fdiv_rn and multiply with
+//     __fmul_rn, so nvcc cannot contract x * levels - floor(x) into an FMA
+//     (the reference rounds the product first); max|g| is exact in any order.
+//   * the dequantizers multiply the integer code by scale * f32(1/levels)
+//     (or scale * INV127), that product rounded once; f32(1/levels) is the
+//     IEEE quotient __fdiv_rn(1, levels), as the reference's
+//     np.float32(1) / np.float32(levels).
 // No --use_fast_math.
 //
 // Design (simple and right first; speed is later work):
 //   sign_pack: 256 threads, one warp per 512-value row, 16 coalesced loads a
 //     lane; the ragged last row loads 0.0 past n.
-//   sign_unpack, unpack_dequant: one thread per output value; the word is
-//     read through the L1 by the 32 (or cpw) threads that share it.
+//   sign_unpack, unpack_dequant, block_dequant, coeff_dequant: one thread
+//     per output value; the word (or scale) is read through the L1 by the
+//     threads that share it.  coeff_dequant masks the ragged last 512-column
+//     block of each row by writing only the m columns that exist.
 //   quant_pack: 256 threads, one warp per row; lane L owns the 16 values
 //     16L..16L+15 of its row (four float4 loads of g and of u when the row is
 //     whole and aligned), keeps them in registers across the warp's max
 //     reduction, and writes its 16*bits/32 words.  Values past n read as 0.0
 //     (the reference's zero padding), so g is never copied to a padded
 //     buffer; u covers the padded length, as the reference draws it.
+//   block_quant: 256 threads, one warp per row of `block` values, which the
+//     lanes stride over (coalesced) twice: once for the max, once, from L1
+//     and L2, to quantize.  A block that is not a multiple of 32 leaves some
+//     lanes idle in its last stride.  g reads as 0.0 past n, as in quant_pack.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,6 +92,8 @@ constexpr int ROWS_PER_BLOCK = ROW_THREADS / 32;
 constexpr int ELEM_THREADS = 256;
 constexpr float SCALE_FLOOR = 1e-12f;
 constexpr unsigned FULL = 0xffffffffu;
+// f32(1/127), rounded once: the int8 coefficient wire's step (ref.INV127)
+constexpr float INV127 = 0x1.020408p-7f;
 
 __global__ void __launch_bounds__(ROW_THREADS)
 sign_pack_kernel(const float* __restrict__ g, uint32_t* __restrict__ words,
@@ -178,6 +204,58 @@ unpack_dequant_kernel(const uint32_t* __restrict__ words, const float* __restric
   out[i] = __fmul_rn((float)code, __fmul_rn(scales[i / ROW], INV));
 }
 
+__global__ void __launch_bounds__(ROW_THREADS)
+block_quant_kernel(const float* __restrict__ g, const float* __restrict__ u,
+                   int8_t* __restrict__ codes, float* __restrict__ scales,
+                   long long n, long long rows, int block, int bits) {
+  const int lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
+  if (row >= rows) return;
+  const float levels = (float)((1 << (bits - 1)) - 1);
+  const long long base = row * block;
+  float mx = 0.0f;
+  for (int c = lane; c < block; c += 32) {
+    const long long i = base + c;
+    if (i < n) mx = fmaxf(mx, fabsf(g[i]));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+  const float scale = fmaxf(mx, SCALE_FLOOR);
+  for (int c = lane; c < block; c += 32) {
+    const long long i = base + c;
+    const float x = __fmul_rn(__fdiv_rn(i < n ? g[i] : 0.0f, scale), levels);
+    const float lo = floorf(x);
+    float code = __fadd_rn(lo, u[i] < __fsub_rn(x, lo) ? 1.0f : 0.0f);
+    code = fminf(fmaxf(code, -levels), levels);
+    codes[i] = (int8_t)(int)code;
+  }
+  if (lane == 0) scales[row] = scale;
+}
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+__device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
+
+template <typename T>
+__global__ void __launch_bounds__(ELEM_THREADS)
+block_dequant_kernel(const int8_t* __restrict__ codes, const float* __restrict__ scales,
+                     T* __restrict__ out, long long n, int block, int bits) {
+  const long long i = (long long)blockIdx.x * ELEM_THREADS + threadIdx.x;
+  if (i >= n) return;
+  const float inv = __fdiv_rn(1.0f, (float)((1 << (bits - 1)) - 1));
+  store(out + i, __fmul_rn((float)codes[i], __fmul_rn(scales[i / block], inv)));
+}
+
+__global__ void __launch_bounds__(ELEM_THREADS)
+coeff_dequant_kernel(const int8_t* __restrict__ codes, const float* __restrict__ scales,
+                     float* __restrict__ out, long long total, int m, int nb) {
+  const long long i = (long long)blockIdx.x * ELEM_THREADS + threadIdx.x;
+  if (i >= total) return;
+  const long long row = i / m;
+  const int col = (int)(i - row * m);
+  out[i] = __fmul_rn((float)codes[i], __fmul_rn(scales[row * nb + col / ROW], INV127));
+}
+
 inline unsigned grid_for(long long items, int per_block) {
   return (unsigned)((items + per_block - 1) / per_block);
 }
@@ -237,5 +315,49 @@ extern "C" int wire_unpack_dequant_f32(const uint32_t* words, const float* scale
     case 8: unpack_dequant_kernel<8><<<grid, ELEM_THREADS, 0, s>>>(words, scales, out, n); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// g (n,) f32, u (n_p,) f32 with n_p = ceil(n/block)*block -> codes (n_p,) int8,
+// scales (n_p/block,) f32; 2 <= bits <= 8
+extern "C" int quant_block_quant_f32(const float* g, const float* u, int8_t* codes,
+                                      float* scales, long long n, int block, int bits,
+                                      void* stream) {
+  if (n < 1 || block < 1 || bits < 2 || bits > 8) return (int)cudaErrorInvalidValue;
+  const long long rows = (n + block - 1) / block;
+  block_quant_kernel<<<grid_for(rows, ROWS_PER_BLOCK), ROW_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(g, u, codes, scales, n, rows,
+                                                           block, bits);
+  return (int)cudaGetLastError();
+}
+
+// codes (n_p,) int8, scales (n_p/block,) f32 -> out (n,), n <= n_p, of type
+// out_kind: 0 f32, 1 bf16, 2 f16
+extern "C" int quant_block_dequant(const int8_t* codes, const float* scales, void* out,
+                                   long long n, int block, int bits, int out_kind,
+                                   void* stream) {
+  if (n < 1 || block < 1 || bits < 2 || bits > 8) return (int)cudaErrorInvalidValue;
+  const unsigned grid = grid_for(n, ELEM_THREADS);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (out_kind) {
+    case 0: block_dequant_kernel<<<grid, ELEM_THREADS, 0, s>>>(
+        codes, scales, static_cast<float*>(out), n, block, bits); break;
+    case 1: block_dequant_kernel<<<grid, ELEM_THREADS, 0, s>>>(
+        codes, scales, static_cast<__nv_bfloat16*>(out), n, block, bits); break;
+    case 2: block_dequant_kernel<<<grid, ELEM_THREADS, 0, s>>>(
+        codes, scales, static_cast<__half*>(out), n, block, bits); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// codes (L, k, m) int8, scales (L, k, ceil(m/512)) f32 -> out (L, k, m) f32
+extern "C" int wire_coeff_dequant_f32(const int8_t* codes, const float* scales, float* out,
+                                       long long rows, int m, void* stream) {
+  if (rows < 1 || m < 1) return (int)cudaErrorInvalidValue;
+  const long long total = rows * m;
+  coeff_dequant_kernel<<<grid_for(total, ELEM_THREADS), ELEM_THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(codes, scales, out, total, m,
+                                                              (m + ROW - 1) / ROW);
   return (int)cudaGetLastError();
 }

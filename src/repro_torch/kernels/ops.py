@@ -1,26 +1,29 @@
 """Public entry points of the port's kernels, dispatching on device.
 
 Port of ``repro/kernels/ops.py``: ``encode``/``decode``, the coefficient
-wire (``coeff_quant``, ``coeff_roundtrip``, ``encode_quant``,
-``decode_wire``) and the quantizer wire (``sign_wire``/``sign_unwire``,
-``block_quant_wire``/``block_dequant_wire``, ``quantize_update``).  A
-tensor on the CPU goes to the plain version in
-``ref``; a CUDA tensor goes to the hand-written kernel, or the call raises.
-There is no fall-back on the card: a shape or dtype the kernel does not
-take is an error, not a silent plain path.
+wire (``coeff_quant``, ``coeff_dequant``, ``coeff_roundtrip``,
+``encode_quant``, ``decode_wire``), the quantizer wire
+(``sign_wire``/``sign_unwire``, ``block_quant_wire``/``block_dequant_wire``,
+``quantize_update``), the unpacked block quantizer (``block_quantize``,
+``block_dequantize``) and ``flash_attention``.  A tensor on the CPU goes to
+the plain version in ``ref``; a CUDA tensor goes to the hand-written
+kernel, or the call raises.  There is no fall-back on the card: a shape or
+dtype the kernel does not take is an error, not a silent plain path.
 
-On the card the operands are stacks ``(L, l, k)``/``(L, l, m)``/``(L, k,
-m)``, one kernel call per stack (the CPU path also takes single
-matrices).  The kernels
-tile l in shared memory and mask the ragged m edge, so the reference's VMEM
-fit rule (``choose_block_m``), its fall-back to the oracle for large l and
-its column padding have no counterpart here.
+On the card the coefficient operands are stacks ``(L, l, k)``/``(L, l,
+m)``/``(L, k, m)``, one kernel call per stack (the CPU path also takes
+single matrices).  The kernels tile l in shared memory and mask the ragged
+m edge, so the reference's VMEM fit rule (``choose_block_m``), its
+fall-back to the oracle for large l and its column padding have no
+counterpart here.
 
-The quantizer wire works on flat ``(n,)`` vectors in rows of 512 values.
-Its words are uint32 values held as the bit patterns of int32 tensors on
-both devices.  The card's quantizer kernels take ``bits`` in {2, 4, 8} and
-512-value blocks; other widths raise there (the reference sends them to its
-oracle).
+The quantizer wire works on flat ``(n,)`` vectors.  Its words are uint32
+values held as the bit patterns of int32 tensors on both devices.  It has
+two routes, as the reference has: ``bits`` in {2, 4, 8} with 512-value
+blocks run the fused ``quant_pack``/``unpack_dequant`` kernels; every other
+width from 2 to 8 bits, and any block, runs the ``block_quant`` and
+``block_dequant`` kernels around an integer pack (see
+``block_quant_wire``).
 """
 
 from __future__ import annotations
@@ -30,18 +33,21 @@ from typing import Dict, Tuple
 import torch
 
 from ..core import baselines, prng
-from . import _build, gradestc_decode, gradestc_encode, ref, wire
+from . import _build, gradestc_decode, gradestc_encode, quant, ref, wire
+from . import flash_attention as flash
 
-__all__ = ["encode", "decode", "coeff_quant", "coeff_roundtrip", "encode_quant",
-           "decode_wire", "sign_wire", "sign_unwire", "block_quant_wire",
-           "block_dequant_wire", "quantize_update", "WIRE_DTYPES", "KERNELS",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["encode", "decode", "coeff_quant", "coeff_dequant", "coeff_roundtrip",
+           "encode_quant", "decode_wire", "sign_wire", "sign_unwire", "block_quant_wire",
+           "block_dequant_wire", "quantize_update", "block_quantize", "block_dequantize",
+           "flash_attention", "WIRE_DTYPES", "KERNELS", "launch_counts",
+           "reset_launch_counts"]
 
 #: coefficient wire formats: exact f32, bf16 half-words, scaled int8 codes
 WIRE_DTYPES = ("f32", "bf16", "int8")
 #: the CUDA kernels, by the names their launches are counted under
 KERNELS = ("encode", "decode", "coeff_quant", "encode_quant", "decode_wire",
-           "sign_pack", "sign_unpack", "quant_pack", "unpack_dequant")
+           "sign_pack", "sign_unpack", "quant_pack", "unpack_dequant", "coeff_dequant",
+           "block_quant", "block_dequant", "flash_attention")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -84,6 +90,14 @@ def coeff_quant(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tens
     return wire.coeff_quant(A)
 
 
+def coeff_dequant(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """int8 codes ``(..., k, m)`` + scales ``(..., k, ceil(m/512))`` -> f32
+    ``codes * (scale * INV127)`` (the card takes ``(L, k, m)`` stacks)."""
+    if _route(codes, scales) == "cpu":
+        return ref.coeff_dequant_ref(codes, scales)
+    return wire.coeff_dequant(codes, scales)
+
+
 def coeff_roundtrip(A: torch.Tensor, wire_dtype: str = "f32") -> torch.Tensor:
     """Ship a coefficient matrix through its wire format and back: "f32" is
     the identity, "bf16" rounds to bf16 half-words and packs them into
@@ -117,13 +131,14 @@ def decode_wire(M: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> t
 
 def _words32(words: torch.Tensor) -> torch.Tensor:
     """uint32 values held in int64 (the plain versions' words) -> the same
-    bits as int32, the wire words' type on both devices."""
-    return words.to(torch.int32)
+    bits as int32, the wire words' type on both devices (wrapped here, not
+    left to an out-of-range cast)."""
+    return (words - ((words >> 31) << 32)).to(torch.int32)
 
 
-def _check_block(block: int) -> None:
-    if block != ref.WIRE_BLOCK:
-        raise ValueError(f"the quantizer kernels take block={ref.WIRE_BLOCK}, got {block}")
+def _fused_wire(bits: int, block: int) -> bool:
+    """Whether the fused quant_pack/unpack_dequant route takes this width."""
+    return bits in wire.QUANT_BITS and block == ref.WIRE_BLOCK
 
 
 def sign_wire(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -149,30 +164,51 @@ def block_quant_wire(g: torch.Tensor, key: torch.Tensor, bits: int = 8,
                      block: int = ref.WIRE_BLOCK
                      ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Block-quantize and bit-pack a flat ``g (n,)`` (FedPAQ/FedQClip):
-    (words (n_p*bits/32,), scales (n_p/block,), pad), ``n_p = n + pad`` the
-    length padded to a whole block.  The stochastic rounding draws
-    ``prng.uniform(key, (n_p,))`` over the padded length, as the reference
-    does, on ``g``'s device."""
+    (words (ceil(n_p / (32 // bits)),), scales (n_p/block,), pad), ``n_p =
+    n + pad`` the length padded to a whole block; code ``i`` sits in word
+    ``i // (32 // bits)``.  The stochastic rounding draws ``prng.uniform(key,
+    (n_p,))`` over the padded length, as the reference does, on ``g``'s
+    device.
+
+    bits in {2, 4, 8} with 512-value blocks: the fused ``quant_pack``.  Any
+    other width from 2 to 8 bits, or another block: ``block_quantize`` (the
+    ``block_quant`` kernel on the card), then the codes biased by ``+levels``
+    and packed ``32 // bits`` to a word by a few integer tensor ops.  The
+    pack stays outside the kernel because the reference, too, packs these
+    widths outside any kernel (its oracle, ``ref.quant_pack_ref``); all
+    arithmetic on values is in the kernels, and both routes equal
+    ``ref.quant_pack_ref`` bit for bit."""
     if bits < 2:
         raise ValueError("1-bit quantization is the sign wire (ops.sign_wire)")
+    if bits > 8:
+        raise ValueError(f"the quantizer wire takes 2 <= bits <= 8, got {bits}")
+    if not _fused_wire(bits, block):
+        codes, scales, pad = block_quantize(g, key, block=block, bits=bits)
+        biased = codes.to(torch.int64) + int(ref.quant_levels(bits))
+        return _words32(ref.pack_codes_ref(biased, bits)), scales, pad
     n = g.shape[0]
     pad = (-n) % block
     if _route(g, key) == "cpu":
         words, scales = ref.quant_pack_ref(torch.nn.functional.pad(g, (0, pad)),
                                            prng.uniform(key, (n + pad,)), block, bits)
         return _words32(words), scales, pad
-    _check_block(block)
     return (*wire.quant_pack(g, prng.uniform(key, (n + pad,)), bits), pad)
 
 
 def block_dequant_wire(words: torch.Tensor, scales: torch.Tensor, pad: int,
                        bits: int = 8, block: int = ref.WIRE_BLOCK) -> torch.Tensor:
     """Inverse of :func:`block_quant_wire`: unpack, un-bias, dequantize,
-    crop the padding."""
+    crop the padding (f32).  The other widths unpack and un-bias with
+    integer tensor ops and dequantize with ``block_dequantize``."""
+    if not 2 <= bits <= 8:
+        raise ValueError(f"the quantizer wire takes 2 <= bits <= 8, got {bits}")
     n_p = scales.shape[0] * block
+    if not _fused_wire(bits, block):
+        codes = ref.unpack_codes_ref(words, bits, n_p) - int(ref.quant_levels(bits))
+        codes = codes.to(torch.int8)
+        return block_dequantize(codes, scales, pad, block=block, bits=bits)
     if _route(words, scales) == "cpu":
         return ref.unpack_dequant_ref(words, scales, n_p, block, bits)[: n_p - pad]
-    _check_block(block)
     return wire.unpack_dequant(words, scales, n_p - pad, bits)
 
 
@@ -192,3 +228,42 @@ def quantize_update(g: torch.Tensor, key: torch.Tensor, bits: int = 8,
     codes, scale = baselines.quantize_stochastic(g, key, bits)
     codes = ref.unpack_codes_ref(ref.pack_codes_ref(codes, bits), bits, g.shape[0])
     return baselines.dequantize(codes, scale, bits).to(g.dtype)
+
+
+def block_quantize(g: torch.Tensor, key: torch.Tensor, block: int = 512, bits: int = 8
+                   ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Flat block-stochastic quantization (the reference's
+    ``ops.block_quantize``): (codes int8 (n_p,), scales f32 (n_p/block,),
+    pad), ``n_p = n + pad`` the length padded to a whole block, with the
+    uniforms ``prng.uniform(key, (n_p,))`` drawn over the padded length on
+    ``g``'s device.  The card reads g as zero past n (no padded copy)."""
+    n = g.shape[0]
+    pad = (-n) % block
+    u = prng.uniform(key, (n + pad,))
+    if _route(g, key) == "cpu":
+        codes, scales = ref.block_quant_ref(torch.nn.functional.pad(g, (0, pad)), u, block,
+                                            bits)
+        return codes, scales, pad
+    return (*quant.block_quant(g, u, block, bits), pad)
+
+
+def block_dequantize(codes: torch.Tensor, scales: torch.Tensor, pad: int, block: int = 512,
+                     bits: int = 8, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of :func:`block_quantize`: ``code * (scale * f32(1/levels))``
+    in ``out_dtype``, the padding cropped."""
+    n = codes.shape[0] - pad
+    if _route(codes, scales) == "cpu":
+        return ref.block_dequant_ref(codes, scales, block, bits)[:n].to(out_dtype)
+    return quant.block_dequant(codes, scales, n, block, bits, out_dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                    window: int = 0, softmax_scale: float | None = None) -> torch.Tensor:
+    """Grouped-query attention over full sequences: q (B, Sq, H, hd), k and
+    v (B, Skv, KV, hd) -> (B, Sq, H, hd).  The flash kernel on the card, the
+    plain attention over repeated K/V on the CPU."""
+    if _route(q, k, v) == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softmax_scale=softmax_scale)
+    return flash.flash_attention(q, k, v, causal=causal, window=window,
+                                 softmax_scale=softmax_scale)

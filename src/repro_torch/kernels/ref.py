@@ -18,11 +18,14 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..models.layers import attention, repeat_kv
+
 __all__ = ["WIRE_BLOCK", "INV127", "quant_levels", "recip32", "encode_ref", "decode_ref",
            "block_quant_ref", "block_dequant_ref", "pack_codes_ref", "unpack_codes_ref",
            "pairwise_sum", "mean_abs_ref", "sign_pack_ref", "sign_unpack_ref",
            "quant_pack_ref", "unpack_dequant_ref", "coeff_quant_ref",
-           "coeff_dequant_ref", "bf16_pack_ref", "bf16_unpack_ref", "encode_quant_ref"]
+           "coeff_dequant_ref", "bf16_pack_ref", "bf16_unpack_ref", "encode_quant_ref",
+           "flash_attention_ref"]
 
 #: codes per scale row of every packed wire format.
 WIRE_BLOCK = 512
@@ -217,3 +220,16 @@ def encode_quant_ref(M: torch.Tensor, G: torch.Tensor
     M32, G32 = M.float(), G.float()
     codes, scales, ship = coeff_quant_ref(M32.mT @ G32)
     return codes, scales, (G32 - M32 @ ship).to(G.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                        window: int = 0, softmax_scale: float | None = None) -> torch.Tensor:
+    """GQA attention without the flash kernel: K/V repeated to the query
+    heads, then the plain :func:`models.layers.attention` (the JAX tests'
+    reference for the TPU kernel).  q (B, Sq, H, hd); k, v (B, Skv, KV, hd)
+    with H a multiple of KV; ``window > 0`` masks ``kpos <= qpos - window``;
+    ``softmax_scale`` defaults to ``hd ** -0.5``.  The probabilities are cast
+    to ``v.dtype`` before P·V (bf16 inputs), as the TPU kernel does."""
+    rep = q.shape[2] // k.shape[2]
+    return attention(q, repeat_kv(k, rep), repeat_kv(v, rep), causal=causal, window=window,
+                     softmax_scale=softmax_scale)

@@ -18,7 +18,14 @@ The quantizer wire (``csrc/quant_wire.cu``), on flat f32 vectors:
 with ``use_pallas``).  Their plain versions are ``ref.sign_pack_ref``,
 ``ref.sign_unpack_ref``, ``ref.quant_pack_ref`` and
 ``ref.unpack_dequant_ref``; each kernel equals its plain version bit for bit.
-All four are single passes bounded by HBM bandwidth.  Wire words are
+All four are single passes bounded by HBM bandwidth.
+
+``coeff_dequant`` (also in ``csrc/quant_wire.cu``) replaces
+``wire.py::coeff_dequant_pallas``: ``codes * (scale * INV127)`` back to a
+``(L, k, m)`` f32 matrix, the int8 coefficient wire's dequantization
+(``decode_wire`` fuses the same step into its GEMM).  No path of the JAX
+package calls it; ``ops.coeff_dequant`` exposes it.  Its plain version is
+``ref.coeff_dequant_ref``, and it too is exact.  Wire words are
 uint32 values, held here as the bit patterns of an int32 tensor.
 """
 
@@ -31,22 +38,11 @@ import torch
 from . import _build, ref
 from .gradestc_encode import check_operand
 
-__all__ = ["coeff_quant", "sign_pack", "sign_unpack", "quant_pack", "unpack_dequant",
-           "QUANT_BITS"]
+__all__ = ["coeff_quant", "coeff_dequant", "sign_pack", "sign_unpack", "quant_pack",
+           "unpack_dequant", "QUANT_BITS"]
 
 #: bit widths whose codes tile a 512-value row in whole words
 QUANT_BITS = (2, 4, 8)
-
-
-def _launch(name: str, fn: str, *args) -> None:
-    rc = getattr(_build.load(), fn)(*args)
-    if rc != 0:
-        raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")
-    _build.launches[name] += 1
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _rows(n: int) -> int:
@@ -69,9 +65,26 @@ def coeff_quant(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tens
     ship = torch.empty_like(A)
     if L * k * m:
         with torch.cuda.device(A.device):
-            _launch("coeff_quant", "gradestc_coeff_quant_f32", A.data_ptr(), codes.data_ptr(),
-                    scales.data_ptr(), ship.data_ptr(), L, k, m, _stream(A))
+            _build.launch("coeff_quant", "gradestc_coeff_quant_f32", A.data_ptr(),
+                          codes.data_ptr(), scales.data_ptr(), ship.data_ptr(), L, k, m,
+                          _build.stream(A))
     return codes, scales, ship
+
+
+def coeff_dequant(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """codes int8 (L, k, m) and scales f32 (L, k, ceil(m/512)) on one CUDA
+    device -> (L, k, m) f32, ``codes * (scale * INV127)``."""
+    check_operand("codes", codes, 3, codes.device, torch.int8)
+    check_operand("scales", scales, 3, codes.device)
+    L, k, m = codes.shape
+    if scales.shape != (L, k, -(-m // ref.WIRE_BLOCK)):
+        raise ValueError(f"scales {tuple(scales.shape)} do not fit codes {tuple(codes.shape)}")
+    out = torch.empty((L, k, m), dtype=torch.float32, device=codes.device)
+    if L * k * m:
+        with torch.cuda.device(codes.device):
+            _build.launch("coeff_dequant", "wire_coeff_dequant_f32", codes.data_ptr(),
+                          scales.data_ptr(), out.data_ptr(), L * k, m, _build.stream(codes))
+    return out
 
 
 def sign_pack(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -84,8 +97,8 @@ def sign_pack(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     rowsums = torch.empty((_rows(n),), dtype=torch.float32, device=g.device)
     if n:
         with torch.cuda.device(g.device):
-            _launch("sign_pack", "wire_sign_pack_f32", g.data_ptr(), words.data_ptr(),
-                    rowsums.data_ptr(), n, _stream(g))
+            _build.launch("sign_pack", "wire_sign_pack_f32", g.data_ptr(), words.data_ptr(),
+                          rowsums.data_ptr(), n, _build.stream(g))
     return words, rowsums
 
 
@@ -100,8 +113,8 @@ def sign_unpack(words: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tenso
     out = torch.empty((n,), dtype=torch.float32, device=words.device)
     if n:
         with torch.cuda.device(words.device):
-            _launch("sign_unpack", "wire_sign_unpack_f32", words.data_ptr(),
-                    scale.data_ptr(), out.data_ptr(), n, _stream(words))
+            _build.launch("sign_unpack", "wire_sign_unpack_f32", words.data_ptr(),
+                          scale.data_ptr(), out.data_ptr(), n, _build.stream(words))
     return out
 
 
@@ -122,8 +135,8 @@ def quant_pack(g: torch.Tensor, u: torch.Tensor, bits: int = 8
     scales = torch.empty((rows,), dtype=torch.float32, device=g.device)
     if n:
         with torch.cuda.device(g.device):
-            _launch("quant_pack", "wire_quant_pack_f32", g.data_ptr(), u.data_ptr(),
-                    words.data_ptr(), scales.data_ptr(), n, bits, _stream(g))
+            _build.launch("quant_pack", "wire_quant_pack_f32", g.data_ptr(), u.data_ptr(),
+                          words.data_ptr(), scales.data_ptr(), n, bits, _build.stream(g))
     return words, scales
 
 
@@ -142,6 +155,6 @@ def unpack_dequant(words: torch.Tensor, scales: torch.Tensor, n: int, bits: int 
     out = torch.empty((n,), dtype=torch.float32, device=words.device)
     if n:
         with torch.cuda.device(words.device):
-            _launch("unpack_dequant", "wire_unpack_dequant_f32", words.data_ptr(),
-                    scales.data_ptr(), out.data_ptr(), n, bits, _stream(words))
+            _build.launch("unpack_dequant", "wire_unpack_dequant_f32", words.data_ptr(),
+                          scales.data_ptr(), out.data_ptr(), n, bits, _build.stream(words))
     return out

@@ -8,6 +8,7 @@ other; the port's model implements the dense family.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -78,3 +79,36 @@ class ArchConfig:
         n = n or self.n_layers
         pat = self.pattern
         return tuple(pat[i % len(pat)] for i in range(n))
+
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test variant: same family/topology, tiny dimensions (a
+        copy of the reference's ``ArchConfig.reduced``)."""
+        d = min(self.d_model, 256)
+        heads = min(self.n_heads, 4)
+        kv = min(self.n_kv_heads, heads)
+        hd = d // heads
+        pat = self.pattern
+        n_layers = max(2, len(pat)) if len(pat) > 1 else 2
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            n_layers=n_layers,
+            d_model=d,
+            n_heads=heads,
+            n_kv_heads=kv,
+            head_dim=hd if self.head_dim else 0,
+            d_ff=min(self.d_ff, 512),
+            vocab=min(self.vocab, 1024),
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            experts_per_tok=min(self.experts_per_tok, 2) if self.experts_per_tok else 0,
+            encoder_layers=min(self.encoder_layers, 2) if self.encoder_layers else 0,
+            encoder_seq=min(self.encoder_seq, 64) if self.encoder_layers else self.encoder_seq,
+            vision_tokens=min(self.vision_tokens, 16) if self.vision_tokens else 0,
+            sliding_window=min(self.sliding_window, 16) if self.sliding_window else 0,
+            d_rnn=min(self.d_rnn, 256) if self.d_rnn else 0,
+            time_decay_extra_dim=16,
+            attn_chunk=64,
+            scan_chunk=16,
+            dtype="float32",
+            remat=False,
+        )

@@ -10,6 +10,14 @@ loop over that axis (the reference's ``lax.scan``).
 Initialization draws from the reference's key tree with
 :mod:`repro_torch.core.prng`, so initial weights equal the reference's to
 within the PRNG's normal bound.
+
+Attention: a forward on the card with grad disabled (the eval forward,
+which runs under ``torch.no_grad``) goes through the flash kernel
+(``kernels.ops.flash_attention``, GQA without repeating K/V); every other
+forward (local training under ``torch.func.grad``, anything on the CPU)
+runs the plain ``layers.attention`` over repeated K/V, as the reference's
+``model.forward`` does.  The reference defines no backward for its flash
+kernel, so training stays plain.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..core import prng
+from ..kernels import ops
 from .config import ArchConfig
 from .layers import apply_rope, attention, repeat_kv, rms_norm, swiglu
 
@@ -104,8 +113,11 @@ def _layer_fwd(cfg: ArchConfig, x: torch.Tensor, w: Params, positions: torch.Ten
     if cfg.pos_type == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    o = attention(q, repeat_kv(k, H // KV), repeat_kv(v, H // KV), causal=True,
-                  window=window, q_chunk=cfg.attn_chunk)
+    if q.is_cuda and not torch.is_grad_enabled():
+        o = ops.flash_attention(q, k, v, causal=True, window=window)
+    else:
+        o = attention(q, repeat_kv(k, H // KV), repeat_kv(v, H // KV), causal=True,
+                      window=window, q_chunk=cfg.attn_chunk)
     x = x + o.reshape(B, S, H * hd) @ w["attn_wo"]
     h = rms_norm(x, w["ln_mlp"], cfg.norm_eps)
     return x + swiglu(h, w["mlp_wgate"], w["mlp_win"], w["mlp_wout"])

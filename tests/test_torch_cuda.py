@@ -6,8 +6,12 @@ Tolerances: encode/decode, and encode_quant's E and decode_wire's Ghat,
 encode_quant's codes equal except by one where A/scale*127 sits within
 1e-4 of a half-integer; M = 0 exact; PRNG draws bit for bit; the sign and
 quantizer wire kernels (sign_pack, sign_unpack, quant_pack, unpack_dequant)
-bit for bit, at every flat group size of the TinyLlama-width slice and at
-ragged sizes.
+and the block quantizer (block_quant, block_dequant, also through the wire
+route of the other bit widths) bit for bit, at every flat group size of the
+TinyLlama-width slice and at ragged sizes; coeff_dequant bit for bit;
+flash_attention within rtol = atol = 1e-4 in f32 and 5e-2 with bf16 inputs
+(the JAX tests' tolerances), and an eval forward on the card launches it
+once per layer while a ``torch.func.grad`` step launches it never.
 
 Every test here needs a CUDA card and skips without one (the kernels have
 no CPU mode).  The file imports neither jax nor the JAX package, so it runs
@@ -28,7 +32,8 @@ import numpy as np  # noqa: E402
 
 from repro_torch.configs.tinyllama_1_1b import CONFIG  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
-from repro_torch.kernels import ops, wire  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import flash_attention, ops, quant, wire  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 
@@ -242,9 +247,16 @@ def test_cuda_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         wire.quant_pack(g, u, 3)                            # bits not in {2, 4, 8}
     with pytest.raises(ValueError):
-        ops.block_quant_wire(g, key, bits=3)
+        ops.block_quant_wire(g, key, bits=9)                # the wire takes 2..8 bits
     with pytest.raises(ValueError):
-        ops.block_quant_wire(g, key, block=256)
+        ops.block_quant_wire(g, key, bits=1)                # 1 bit is the sign wire
+    with pytest.raises(ValueError):
+        quant.block_quant(g, u, 512, 9)
+    with pytest.raises(ValueError):
+        quant.block_quant(g, u[:1000], 256, 6)              # u not over the padded length
+    with pytest.raises(TypeError):
+        quant.block_dequant(torch.zeros(1024, dtype=torch.int8, device=cuda),
+                            torch.ones(2, device=cuda), 1000, 512, 6, torch.float64)
     with pytest.raises(ValueError):
         wire.quant_pack(g, u[:1000])                        # u not over the padded length
     with pytest.raises(ValueError):
@@ -257,3 +269,144 @@ def test_cuda_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         wire.sign_pack(g.double())
     with pytest.raises(ValueError):
         ops.quantize_update(g, key, use_pallas=False)       # no plain path on the card
+
+
+@pytest.mark.parametrize("n", [1, 513, 70_001, 2_883_584])
+@pytest.mark.parametrize("bits,block", [(3, 512), (5, 512), (6, 512), (7, 512), (6, 256),
+                                        (8, 96)])
+def test_cuda_block_quant_bit_exact(cuda, n, bits, block):
+    g = torch.from_numpy(_flat(n, seed=n + bits)).to(cuda)
+    pad = (-n) % block
+    u = prng.uniform(prng.PRNGKey(n, cuda), (n + pad,))
+    before = ops.launch_counts()
+    codes, scales = quant.block_quant(g, u, block, bits)
+    rc, rs = tref.block_quant_ref(torch.nn.functional.pad(g, (0, pad)), u, block, bits)
+    assert torch.equal(codes, rc) and _same_bits(scales, rs)
+    out = quant.block_dequant(codes, scales, n, block, bits)
+    assert _same_bits(out, tref.block_dequant_ref(rc, rs, block, bits)[:n])
+    half = quant.block_dequant(codes, scales, n, block, bits, torch.bfloat16)
+    assert torch.equal(half, out.to(torch.bfloat16))
+    after = ops.launch_counts()
+    assert after["block_quant"] == before["block_quant"] + 1
+    assert after["block_dequant"] == before["block_dequant"] + 2
+    # the dispatchers: the same uniforms from the same key, and the CPU's result
+    key = prng.PRNGKey(n, cuda)
+    c2, s2, pad2 = ops.block_quantize(g, key, block=block, bits=bits)
+    assert pad2 == pad and torch.equal(c2, codes) and _same_bits(s2, scales)
+    cc, cs, _ = ops.block_quantize(g.cpu(), prng.PRNGKey(n, "cpu"), block=block, bits=bits)
+    assert torch.equal(cc, codes.cpu()) and _same_bits(cs, scales.cpu())
+    assert _same_bits(ops.block_dequantize(codes, scales, pad, block=block, bits=bits), out)
+
+
+@pytest.mark.parametrize("n,bits,block", [(70_001, 6, 512), (70_001, 3, 256), (513, 7, 512),
+                                          (2_883_584, 5, 512)])
+def test_cuda_quant_wire_other_widths(cuda, n, bits, block):
+    """bits outside {2, 4, 8} or a block other than 512: block_quant, the
+    integer pack, and back, equal to the oracle and to the CPU's route."""
+    g = torch.from_numpy(_flat(n, seed=3 * n + bits)).to(cuda)
+    key = prng.PRNGKey(n + bits, cuda)
+    before = ops.launch_counts()
+    words, scales, pad = ops.block_quant_wire(g, key, bits=bits, block=block)
+    out = ops.block_dequant_wire(words, scales, pad, bits=bits, block=block)
+    after = ops.launch_counts()
+    n_p = n + pad
+    rw, rs = tref.quant_pack_ref(torch.nn.functional.pad(g, (0, pad)),
+                                 prng.uniform(key, (n_p,)), block, bits)
+    assert words.dtype == torch.int32 and torch.equal(_u32(words), rw) and _same_bits(scales, rs)
+    assert _same_bits(out, tref.unpack_dequant_ref(rw, rs, n_p, block, bits)[:n])
+    assert after["block_quant"] == before["block_quant"] + 1
+    assert after["block_dequant"] == before["block_dequant"] + 1
+    assert after["quant_pack"] == before["quant_pack"]
+    assert after["unpack_dequant"] == before["unpack_dequant"]
+    cw, cs, _ = ops.block_quant_wire(g.cpu(), prng.PRNGKey(n + bits, "cpu"), bits=bits,
+                                     block=block)
+    assert torch.equal(cw, words.cpu()) and _same_bits(cs, scales.cpu())
+
+
+@pytest.mark.parametrize("L,k,m", [(2, 64, 2048), (2, 64, 2816), (3, 5, 700), (1, 4, 100)])
+def test_cuda_coeff_dequant_bit_exact(cuda, L, k, m):
+    A = torch.from_numpy(_coeffs(L, k, m, seed=m + 1)).to(cuda)
+    codes, scales, ship = ops.coeff_quant(A)
+    n = ops.launch_counts()["coeff_dequant"]
+    out = ops.coeff_dequant(codes, scales)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["coeff_dequant"] == n + 1
+    assert _same_bits(out, tref.coeff_dequant_ref(codes, scales))
+    assert _same_bits(out, ship)
+    with pytest.raises(ValueError):
+        ops.coeff_dequant(codes, scales[..., :0])
+    with pytest.raises(TypeError):
+        ops.coeff_dequant(codes.int(), scales)
+
+
+def _qkv(B, Sq, Skv, H, KV, hd, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.standard_normal((B, Sq, H, hd)).astype(np.float32)
+                             ).to(device, dtype),
+            torch.from_numpy(rng.standard_normal((B, Skv, KV, hd)).astype(np.float32)
+                             ).to(device, dtype),
+            torch.from_numpy(rng.standard_normal((B, Skv, KV, hd)).astype(np.float32)
+                             ).to(device, dtype))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,window,dtype", [
+    (4, 256, 256, 32, 4, 64, True, 0, torch.float32),       # TinyLlama's eval shape
+    (2, 1024, 1024, 4, 1, 256, True, 512, torch.float32),   # Gemma3-1B's, local layers
+    (2, 1024, 1024, 4, 1, 256, True, 0, torch.float32),     # and global
+    (2, 128, 128, 4, 1, 64, False, 0, torch.float32),
+    (1, 192, 192, 6, 3, 32, True, 0, torch.float32),
+    (1, 256, 256, 8, 8, 16, True, 64, torch.float32),
+    (1, 70, 90, 4, 2, 40, True, 20, torch.float32),          # ragged lengths, odd hd
+    (1, 100, 30, 4, 2, 32, True, 8, torch.float32),          # rows past Skv + window: no key
+    (1, 128, 128, 4, 2, 32, True, 0, torch.bfloat16),
+    (2, 256, 256, 4, 1, 256, True, 64, torch.bfloat16),
+])
+def test_cuda_flash_matches_plain(cuda, B, Sq, Skv, H, KV, hd, causal, window, dtype):
+    q, k, v = _qkv(B, Sq, Skv, H, KV, hd, dtype, cuda, seed=Sq + hd)
+    n = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    plain = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == n + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(out.float(), plain.float(), rtol=tol, atol=tol)
+
+
+def test_cuda_flash_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(1, 64, 64, 4, 2, 32, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, k[:, :, :1].expand(1, 64, 3, 32).contiguous(),
+                                        v[:, :, :1].expand(1, 64, 3, 32).contiguous())
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q.transpose(1, 2), k, v)     # non-contiguous
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(*(torch.zeros(1, 8, 1, 320, device=cuda)
+                                          for _ in range(3)))         # hd > 256
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(q, k.cpu(), v)
+
+
+def test_cuda_eval_forward_runs_flash_and_training_does_not(cuda):
+    arch = get_config("gemma3-1b").reduced()
+    params = model.init_params(arch, prng.PRNGKey(0, cuda))
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, arch.vocab, (2, 32))).to(cuda)
+             for k in ("tokens", "labels")}
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits = model.forward(arch, params, batch)
+    assert ops.launch_counts()["flash_attention"] == arch.n_layers
+    with torch.no_grad():
+        cpu = model.forward(arch, {p: x.cpu() for p, x in params.items()},
+                            {k: x.cpu() for k, x in batch.items()})
+    torch.testing.assert_close(logits.cpu(), cpu, rtol=1e-4, atol=1e-4)
+    ops.reset_launch_counts()
+    grads = torch.func.grad(lambda p: model.loss_fn(arch, p, batch))(params)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
