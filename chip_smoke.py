@@ -29,7 +29,13 @@ script exits non-zero:
    and 5e-2 in bf16; CUDA-event times (median of 20 after warm-up) of the
    kernel, the plain version and the library call (cuBLAS for the GEMM
    kernels, ``scaled_dot_product_attention`` for flash), beside the
-   data-sheet bound, and of the quantizer's uniform draw;
+   data-sheet bound, and of the quantizer's uniform draw; for encode and
+   encode_quant also the time per call over 20 back-to-back calls (device
+   time, without the wrapper's host cost) beside the library's, the host
+   time to enqueue a call, and both kernels checked and timed the same way
+   at Gemma3-1B's four compressed groups, summed per client-round; and how
+   many elements of encode_quant's A (its sequential chain over l) differ
+   in their bits from cuBLAS's, at those shapes and at two off the path;
 4. slice: ``run_fl`` (loop engine) at TinyLlama-1.1B width, cut to 2
    layers and a 4096 vocab, for gradestc on the f32, int8 and bf16 wires,
    svdfed on the f32, bf16 and int8 wires, signsgd, fedpaq (8 and 6 bits),
@@ -54,7 +60,9 @@ script exits non-zero:
 ``python3 chip_smoke.py --profile [METHOD]`` adds, after phase 4, a run of
 METHOD (gradestc unless named; any method of phase 4) whose round 1 is
 traced by ``torch.profiler``: the device idle share of that
-round and the top ops and kernels by device time.
+round and the top ops and kernels by device time; before it, the device
+time of each CUDA kernel that one encode and one encode_quant call launch,
+per TinyLlama group shape and per client-round.
 
 The line before the last is the ``{"kernels": [...]}`` JSON summary and
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -80,9 +88,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (NVIDIA): HBM3 bandwidth and FP32 on the CUDA cores.
+# H100 SXM data-sheet peaks (NVIDIA): HBM3 bandwidth, FP32 on the CUDA cores
+# and dense TF32 on the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
 KERNEL_RTOL = 1e-5        # ||kernel - plain||_F <= KERNEL_RTOL * ||G||_F
 LOSS_RTOL = 1e-5          # eval-loss tolerance of the CPU parity tests
 HALF_MARGIN = 1e-4        # int8 codes may differ by one this close to x.5
@@ -147,6 +157,30 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def time_b2b(fn, n: int = 20, warmup: int = 3):
+    """Per call over ``n`` back-to-back calls: (ms from CUDA events around
+    the run / n, host us to enqueue each call).  While the host stays ahead
+    of the card the first is the device time alone; a single-call event
+    time (``time_ms``) also holds the host cost of the call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_us = 1e6 * (time.perf_counter() - t0) / n
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n, host_us
+
+
+def two_gemms(M, G):
+    """encode's library yardstick: cuBLAS's A = M^T G, then G - M A."""
+    return torch.baddbmm(G, M, torch.matmul(M.mT, G), alpha=-1.0)
+
+
 class SyncCounter:
     """Counts the card's host syncs inside the ``with`` block, keyed by the
     innermost line of the port (``src/repro_torch``) on the stack: torch's
@@ -179,8 +213,13 @@ class SyncCounter:
         self.sites[site] += 1
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOP_PER_S
+def bound_ms(nbytes: float, flops: float, tf32_flops: float = 0.0):
+    """The least time for the work: the larger of its bytes over the HBM
+    rate and its operations over their unit's peak -- ``flops`` in FP32 on
+    the CUDA cores, ``tf32_flops`` on the tensor cores (the two units run at
+    once).  Returns (ms, "bytes" or "operations")."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = max(flops / PEAK_FP32_FLOP_PER_S, tf32_flops / PEAK_TF32_FLOP_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -208,6 +247,115 @@ def small_arch():
                       n_heads=4, n_kv_heads=2, d_ff=256, vocab=64, dtype="float32")
 
 
+def encode_bound(shape):
+    """encode's bound: M and G read, A and E written; per element of G, 2k
+    operations for M^T G and 2k for M A, both in 3xTF32 (three TF32
+    products for each f32 one) on the tensor cores, and the subtraction in
+    FP32."""
+    L, l, m, k = shape
+    return bound_ms(4 * L * (l * k + 2 * l * m + k * m), L * l * m, 3 * 4 * L * l * m * k)
+
+
+def encode_quant_bound(shape):
+    """encode_quant's: M and G read, E, codes and scales written; M^T G as
+    an FP32 chain, the subtraction and 5 FP32 operations per coefficient for
+    the quantizer (div, mul, rint, clamp, mul), M ship in 3xTF32."""
+    L, l, m, k = shape
+    n_coef, n_scale = L * k * m, L * k * -(-m // 512)
+    gemm = 2 * L * l * m * k
+    return bound_ms(4 * L * (l * k + 2 * l * m) + n_coef + 4 * n_scale,
+                    gemm + L * l * m + 5 * n_coef, 3 * gemm)
+
+
+def random_basis(shape, gen):
+    """An orthonormal M (L, l, k) and a gradient-sized G (L, l, m) on the card."""
+    L, l, m, k = shape
+    M = torch.linalg.qr(torch.randn(L, l, k, device="cuda", generator=gen)).Q.contiguous()
+    return M, torch.randn(L, l, m, device="cuda", generator=gen) * 1e-3
+
+
+def check_encode(shape, M, G):
+    """encode against its plain version: A and E within KERNEL_RTOL ||G||_F,
+    and M = 0 gives A == 0, E == G exactly.  Returns (rel, exact0, max abs
+    err, the plain A)."""
+    from repro_torch.kernels import gradestc_encode, ref
+
+    A, E = gradestc_encode.encode(M, G)
+    A_ref, E_ref = ref.encode_ref(M, G)
+    A0, E0 = gradestc_encode.encode(torch.zeros_like(M), G)
+    torch.cuda.synchronize()
+    gn = float(G.norm())
+    rel = {"A": float((A - A_ref).norm()) / gn, "E": float((E - E_ref).norm()) / gn}
+    exact0 = bool((A0 == 0).all()) and torch.equal(E0, G)
+    if max(rel.values()) > KERNEL_RTOL or not exact0:
+        raise AssertionError(f"encode mismatch at {shape}: rel={rel} M=0 exact={exact0}")
+    err = max(float((A - A_ref).abs().max()), float((E - E_ref).abs().max()))
+    return rel, exact0, err, A_ref
+
+
+def chain_a(M, G):
+    """The A = M^T G that encode_quant's sequential chain computes (the
+    wrapper keeps it as scratch): its entry point called on buffers of our
+    own."""
+    from repro_torch.kernels import _build
+
+    L, l, k = M.shape
+    m = G.shape[2]
+    codes = torch.empty((L, k, m), dtype=torch.int8, device=G.device)
+    scales = torch.empty((L, k, -(-m // 512)), dtype=torch.float32, device=G.device)
+    A, ship = torch.empty((2, L, k, m), dtype=torch.float32, device=G.device)
+    E = torch.empty_like(G)
+    with torch.cuda.device(G.device):
+        _build.launch("encode_quant", "gradestc_encode_quant_f32", M.data_ptr(), G.data_ptr(),
+                      codes.data_ptr(), scales.data_ptr(), A.data_ptr(), ship.data_ptr(),
+                      E.data_ptr(), L, l, m, k, _build.stream(G))
+    return A
+
+
+def order_diffs(M, G, A):
+    """How many elements of the chain's A differ in their bits from the
+    plain (cuBLAS) A: 0 where the chain sums in cuBLAS's order."""
+    return int((chain_a(M, G).view(torch.int32) != A.contiguous().view(torch.int32)).sum())
+
+
+def check_encode_quant(shape, M, G, A):
+    """encode_quant against its plain version: codes equal but for flips at
+    rounding boundaries (``code_flips``), scales within SCALE_RTOL, E within
+    KERNEL_RTOL ||G||_F of G - M ship on its own shipped values; M = 0 gives
+    codes 0, scales 1e-12, E == G exactly.  A is the plain M^T G; ``rel``
+    also counts the chain's elements of A whose bits differ from it.
+    Returns (codes, scales, ship, flips, rel, zero_ok, max abs err of E)."""
+    from repro_torch.kernels import gradestc_encode, ref
+
+    codes, scales, E = gradestc_encode.encode_quant(M, G)
+    rc, rs, rE = ref.encode_quant_ref(M, G)
+    ship = ref.coeff_dequant_ref(codes, scales)
+    c0, s0, E0 = gradestc_encode.encode_quant(torch.zeros_like(M), G)
+    torch.cuda.synchronize()
+    gn = float(G.norm())
+    zero_ok = not bool(c0.any()) and bool((s0 == 1e-12).all()) and torch.equal(E0, G)
+    flips = code_flips(A, rs, codes, rc)
+    rel = {"E": float((E - (G - M @ ship)).norm()) / gn,
+           "scales": float(((scales - rs).abs() / rs).max()), "A_bits": order_diffs(M, G, A)}
+    if not zero_ok or rel["E"] > KERNEL_RTOL or rel["scales"] > SCALE_RTOL:
+        raise AssertionError(f"encode_quant mismatch at {shape}: M=0 exact={zero_ok} rel={rel}")
+    return codes, scales, ship, flips, rel, zero_ok, float((E - rE).abs().max())
+
+
+def log_b2b(name, fn, lib, w, row, flops):
+    """Print the kernel's and its library yardstick's time per call over 20
+    back-to-back calls (and the kernel's FLOP rate at that time) and each
+    one's host cost per call; add them, w calls a client-round, to ``row``."""
+    ms, host = time_b2b(fn)
+    lib_ms, lib_host = time_b2b(lib)
+    log("kernels", f"  {name} back-to-back x20: kernel {ms:.4f} ms/call "
+                   f"({flops / ms / 1e9:.2f} TFLOP/s, host {host:.1f} us/call), library "
+                   f"{lib_ms:.4f} ms/call (host {lib_host:.1f} us/call)")
+    row["b2b_ms"] = row.get("b2b_ms", 0.0) + w * ms
+    row["b2b_library_ms"] = row.get("b2b_library_ms", 0.0) + w * lib_ms
+    row["host_us"] = row.get("host_us", 0.0) + w * host
+
+
 def phase_kernels(shapes, group_counts):
     """Check and time both kernels at each (L, l, m, k); returns the JSON rows'
     measured numbers, summed over one client's round (group_counts[shape]
@@ -220,37 +368,31 @@ def phase_kernels(shapes, group_counts):
     bound_by = {}
     for shape in shapes:
         L, l, m, k = shape
-        M = torch.linalg.qr(torch.randn(L, l, k, device="cuda", generator=gen)).Q.contiguous()
-        G = torch.randn(L, l, m, device="cuda", generator=gen) * 1e-3
-        A, E = gradestc_encode.encode(M, G)
-        A_ref, E_ref = ref.encode_ref(M, G)
+        M, G = random_basis(shape, gen)
+        rel, exact0, enc_err, A_ref = check_encode(shape, M, G)
         Ghat = gradestc_decode.decode(M, A_ref.contiguous())
         Ghat_ref = ref.decode_ref(M, A_ref)
-        Z = torch.zeros_like(M)
-        A0, E0 = gradestc_encode.encode(Z, G)
         torch.cuda.synchronize()
-        gn = float(G.norm())
-        rel = {"A": float((A - A_ref).norm()) / gn, "E": float((E - E_ref).norm()) / gn,
-               "Ghat": float((Ghat - Ghat_ref).norm()) / gn}
-        exact0 = bool((A0 == 0).all()) and torch.equal(E0, G)
-        enc_err = max(float((A - A_ref).abs().max()), float((E - E_ref).abs().max()))
+        rel["Ghat"] = float((Ghat - Ghat_ref).norm()) / float(G.norm())
         dec_err = float((Ghat - Ghat_ref).abs().max())
-        if max(rel.values()) > KERNEL_RTOL or not exact0:
+        if rel["Ghat"] > KERNEL_RTOL:
             raise AssertionError(f"kernel mismatch at {shape}: rel={rel} M=0 exact={exact0}")
 
         At = A_ref.contiguous()
         t = {
             "encode": (time_ms(lambda: gradestc_encode.encode(M, G)),
                        time_ms(lambda: ref.encode_ref(M, G)),
-                       time_ms(lambda: torch.baddbmm(G, M, torch.matmul(M.mT, G), alpha=-1.0))),
+                       time_ms(lambda: two_gemms(M, G))),
             "decode": (time_ms(lambda: gradestc_decode.decode(M, At)),
                        time_ms(lambda: ref.decode_ref(M, At)),
                        time_ms(lambda: torch.matmul(M, At))),
         }
-        b = {"encode": bound_ms(4 * L * (l * k + 2 * l * m + k * m), L * l * m * (4 * k + 1)),
+        b = {"encode": encode_bound(shape),
              "decode": bound_ms(4 * L * (l * k + k * m + l * m), 2 * L * l * m * k)}
         log("kernels", f"L={L} l={l} m={m} k={k} rel_err A={rel['A']:.3e} E={rel['E']:.3e} "
                        f"Ghat={rel['Ghat']:.3e} M=0 exact={exact0}")
+        log_b2b("encode", lambda: gradestc_encode.encode(M, G), lambda: two_gemms(M, G),
+                group_counts.get(shape, 0), tot["encode"], L * l * m * (4 * k + 1))
         for name in ("encode", "decode"):
             ms, plain, lib = t[name]
             bms, by = b[name]
@@ -293,40 +435,32 @@ def phase_wire_kernels(shapes, group_counts):
     for shape in shapes:
         L, l, m, k = shape
         nb = -(-m // 512)
-        M = torch.linalg.qr(torch.randn(L, l, k, device="cuda", generator=gen)).Q.contiguous()
-        G = torch.randn(L, l, m, device="cuda", generator=gen) * 1e-3
+        M, G = random_basis(shape, gen)
         A = torch.matmul(M.mT, G)
         gn = float(G.norm())
         # coeff_quant: bit for bit, and an all-zero A (scale 1e-12, codes 0)
         q, rq = wire.coeff_quant(A), ref.coeff_quant_ref(A)
         z = wire.coeff_quant(torch.zeros_like(A))
         # encode_quant / decode_wire
-        codes, scales, E = gradestc_encode.encode_quant(M, G)
-        rc, rs, rE = ref.encode_quant_ref(M, G)
-        ship = ref.coeff_dequant_ref(codes, scales)
+        codes, scales, ship, flips, rel, zero_ok, eq_err = check_encode_quant(shape, M, G, A)
         Ghat = gradestc_decode.decode_wire(M, codes, scales)
-        c0, s0, E0 = gradestc_encode.encode_quant(torch.zeros_like(M), G)
         torch.cuda.synchronize()
         cq_exact = (torch.equal(q[0], rq[0]) and torch.equal(q[1].view(torch.int32), rq[1].view(torch.int32))
                     and torch.equal(q[2].view(torch.int32), rq[2].view(torch.int32)))
-        zero_ok = (not bool(z[0].any()) and bool((z[1] == 1e-12).all())
-                   and not bool(c0.any()) and bool((s0 == 1e-12).all()) and torch.equal(E0, G))
-        flips = code_flips(A, rs, codes, rc)
+        zero_ok = zero_ok and not bool(z[0].any()) and bool((z[1] == 1e-12).all())
         Ghat_ref = ref.decode_ref(M, ship)        # the plain version on the same codes
-        rel = {"E": float((E - (G - M @ ship)).norm()) / gn,
-               "Ghat": float((Ghat - Ghat_ref).norm()) / gn,
-               "scales": float(((scales - rs).abs() / rs).max())}
-        if (not cq_exact or not zero_ok or rel["E"] > KERNEL_RTOL or rel["Ghat"] > KERNEL_RTOL
-                or rel["scales"] > SCALE_RTOL):
+        rel["Ghat"] = float((Ghat - Ghat_ref).norm()) / gn
+        if not cq_exact or not zero_ok or rel["Ghat"] > KERNEL_RTOL:
             raise AssertionError(f"wire kernel mismatch at {shape}: coeff_quant exact={cq_exact} "
                                  f"M=0/A=0 exact={zero_ok} rel={rel}")
         err = {"coeff_quant": max(float((q[2] - rq[2]).abs().max()),
                                   float((q[0].int() - rq[0].int()).abs().max())),
-               "encode_quant": float((E - rE).abs().max()),
+               "encode_quant": eq_err,
                "decode_wire": float((Ghat - Ghat_ref).abs().max())}
         log("kernels", f"L={L} l={l} m={m} k={k} coeff_quant bit-exact={cq_exact} "
                        f"encode_quant code flips {flips} of {codes.numel()} rel_err E={rel['E']:.3e} "
-                       f"scales={rel['scales']:.3e} decode_wire rel_err Ghat={rel['Ghat']:.3e} "
+                       f"scales={rel['scales']:.3e} A bits differing from cuBLAS {rel['A_bits']} "
+                       f"decode_wire rel_err Ghat={rel['Ghat']:.3e} "
                        f"M=0 exact={zero_ok}")
         sh = ship.contiguous()
         t = {
@@ -334,7 +468,7 @@ def phase_wire_kernels(shapes, group_counts):
                             time_ms(lambda: ref.coeff_quant_ref(A)), None),
             "encode_quant": (time_ms(lambda: gradestc_encode.encode_quant(M, G)),
                              time_ms(lambda: ref.encode_quant_ref(M, G)),
-                             time_ms(lambda: torch.baddbmm(G, M, torch.matmul(M.mT, G), alpha=-1.0))),
+                             time_ms(lambda: two_gemms(M, G))),
             "decode_wire": (time_ms(lambda: gradestc_decode.decode_wire(M, codes, scales)),
                             time_ms(lambda: ref.decode_ref(M, ref.coeff_dequant_ref(codes, scales))),
                             time_ms(lambda: torch.matmul(M, sh))),
@@ -343,10 +477,12 @@ def phase_wire_kernels(shapes, group_counts):
         # bytes: inputs read once, outputs written once; operations: FP32,
         # 5 per coefficient for the quantizer (div, mul, rint, clamp, mul)
         b = {"coeff_quant": bound_ms(4 * n_coef + n_coef + 4 * n_scale + 4 * n_coef, 5 * n_coef),
-             "encode_quant": bound_ms(4 * L * (l * k + 2 * l * m) + n_coef + 4 * n_scale,
-                                      L * l * m * (4 * k + 1) + 5 * n_coef),
+             "encode_quant": encode_quant_bound(shape),
              "decode_wire": bound_ms(4 * L * (l * k + l * m) + n_coef + 4 * n_scale,
                                      2 * L * l * m * k + 2 * n_coef)}
+        log_b2b("encode_quant", lambda: gradestc_encode.encode_quant(M, G),
+                lambda: two_gemms(M, G), group_counts.get(shape, 0), tot["encode_quant"],
+                L * l * m * (4 * k + 1))
         for name in names:
             ms, plain, lib = t[name]
             bms, by = b[name]
@@ -362,6 +498,69 @@ def phase_wire_kernels(shapes, group_counts):
             row["library_ms"] = None if lib is None else row["library_ms"] + w * lib
             row["bound_ms"] += w * bms
     return tot, bound_by
+
+
+def phase_encode_gemma(shapes, group_counts):
+    """encode and encode_quant at Gemma3-1B's compressed shapes: the checks
+    made at the slice's shapes (``check_encode``, ``check_encode_quant``) and
+    the times beside the two cuBLAS GEMMs, summed over one client's round
+    (group_counts[shape] calls of each shape: gemma3-gradestc's encode, and
+    encode_quant as if svdfed-int8 ran there)."""
+    from repro_torch.kernels import gradestc_encode
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tot = {n: dict(ms=0.0, library_ms=0.0, bound_ms=0.0) for n in ("encode", "encode_quant")}
+    for shape in shapes:
+        L, l, m, k = shape
+        M, G = random_basis(shape, gen)
+        rel, exact0, _, A_ref = check_encode(shape, M, G)
+        _, _, _, flips, qrel, zero_ok, _ = check_encode_quant(shape, M, G, A_ref)
+        log("kernels", f"gemma3 L={L} l={l} m={m} k={k} encode rel_err A={rel['A']:.3e} "
+                       f"E={rel['E']:.3e} M=0 exact={exact0}; encode_quant code flips {flips} "
+                       f"of {L * k * m} rel_err E={qrel['E']:.3e} scales={qrel['scales']:.3e} "
+                       f"A bits differing from cuBLAS {qrel['A_bits']} M=0 exact={zero_ok}")
+        w = group_counts[shape]
+        flops = L * l * m * (4 * k + 1)
+        lib_ms = time_ms(lambda: two_gemms(M, G))
+        for name, fn, (bms, by) in (
+                ("encode", lambda: gradestc_encode.encode(M, G), encode_bound(shape)),
+                ("encode_quant", lambda: gradestc_encode.encode_quant(M, G),
+                 encode_quant_bound(shape))):
+            ms = time_ms(fn)
+            log("kernels", f"  {name}: kernel {ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                           f"{bms:.4f} ms ({by}), calls/client-round {w}")
+            log_b2b(name, fn, lambda: two_gemms(M, G), w, tot[name], flops)
+            tot[name]["ms"] += w * ms
+            tot[name]["library_ms"] += w * lib_ms
+            tot[name]["bound_ms"] += w * bms
+    log_encode_totals("gemma3", tot)
+
+
+def log_chain_order(shapes):
+    """encode_quant's chain against cuBLAS's A at shapes off the path (the
+    card tests' k = 1 and k = 17 cases): how many elements' bits differ, and
+    the scales' largest relative difference (the checks allow SCALE_RTOL)."""
+    from repro_torch.kernels import gradestc_encode, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for shape in shapes:
+        M, G = random_basis(shape, gen)
+        A = torch.matmul(M.mT, G)
+        scales = gradestc_encode.encode_quant(M, G)[1]
+        rs = ref.encode_quant_ref(M, G)[1]
+        log("kernels", f"encode_quant off the path L={shape[0]} l={shape[1]} m={shape[2]} "
+                       f"k={shape[3]}: A bits differing from cuBLAS {order_diffs(M, G, A)} of "
+                       f"{A.numel()}, scales rel {float(((scales - rs).abs() / rs).max()):.3e}")
+
+
+def log_encode_totals(label, tot):
+    """One line per encode kernel: its times summed over a client-round."""
+    for name in ("encode", "encode_quant"):
+        row = tot[name]
+        log("kernels", f"{label} {name} per client-round: kernel {row['ms']:.4f} ms "
+                       f"(back-to-back {row['b2b_ms']:.4f}, host {row['host_us']:.1f} us), "
+                       f"library {row['library_ms']:.4f} (back-to-back "
+                       f"{row['b2b_library_ms']:.4f}), bound {row['bound_ms']:.4f}")
 
 
 def phase_quant_kernels(flat_counts, ragged: int = 70_001):
@@ -548,8 +747,7 @@ def phase_coeff_dequant(shapes, group_counts):
     by = "bytes"
     for shape in shapes:
         L, l, m, k = shape
-        M = torch.linalg.qr(torch.randn(L, l, k, device="cuda", generator=gen)).Q.contiguous()
-        G = torch.randn(L, l, m, device="cuda", generator=gen) * 1e-3
+        M, G = random_basis(shape, gen)
         codes, scales, ship = wire.coeff_quant(torch.matmul(M.mT, G))
         out = wire.coeff_dequant(codes, scales)
         rout = ref.coeff_dequant_ref(codes, scales)
@@ -716,6 +914,40 @@ def phase_profile(method: str, arch, kw) -> None:
             log("profile", f"{kind:6s} {dev(e) / 1e3:9.2f} ms {e.count:6d} calls  {e.key[:80]}")
 
 
+def profile_encode(group_counts) -> None:
+    """``--profile``: the device time of each CUDA kernel that one call of
+    encode and of encode_quant launches (torch.profiler over 10 calls), per
+    shape and summed over one client's round (group_counts[shape] calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import gradestc_encode
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tot = collections.defaultdict(float)
+    for shape in sorted(group_counts):
+        M, G = random_basis(shape, gen)
+        for name, fn in (("encode", lambda: gradestc_encode.encode(M, G)),
+                         ("encode_quant", lambda: gradestc_encode.encode_quant(M, G))):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+            for e in prof.key_averages():
+                us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                if e.device_type != DeviceType.CUDA or us <= 0:
+                    continue
+                kernel = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+                kernel = kernel.split("<")[0].split("(")[0]
+                log("profile", f"{name} L={shape[0]} l={shape[1]} m={shape[2]} k={shape[3]}: "
+                               f"{kernel} {us / 10:.1f} us/call")
+                tot[f"{name} {kernel}"] += group_counts[shape] * us / 10
+    log("profile", "encode kernels per TinyLlama client-round (device us): " + ", ".join(
+        f"{key} {us:.1f}" for key, us in tot.items()))
+
+
 def main() -> int:
     args = sys.argv[1:]
     profile_run = "--profile" in args
@@ -765,6 +997,13 @@ def main() -> int:
     wtot, wbound_by = phase_wire_kernels(shapes, group_counts)
     tot.update(wtot)
     bound_by.update(wbound_by)
+    log_encode_totals("tinyllama", tot)
+    gemma = gemma_arch()
+    gemma_policy = make_policy(model.param_group_shapes(gemma), min_params=4096)
+    gemma_counts = collections.Counter((p.stack, p.l, p.m, p.k)
+                                       for p in gemma_policy.plans.values() if p.compress)
+    phase_encode_gemma(sorted(gemma_counts), gemma_counts)
+    log_chain_order([(2, 300, 260, 1), (1, 517, 1000, 17)])
     flat_counts = collections.Counter(plan.raw_scalars for plan in policy.plans.values())
     qtot, qbound_by, uniform_ms = phase_quant_kernels(flat_counts)
     tot.update(qtot)
@@ -791,9 +1030,7 @@ def main() -> int:
     n_clients, rounds = 4, 3
     kw = dict(n_clients=n_clients, participation=1.0, rounds=rounds, local_steps=2,
               batch=4, seq=256, eval_every=1)
-    gemma = gemma_arch()
     gemma_kw = {**kw, "batch": 2, "seq": 1024}
-    gemma_policy = make_policy(model.param_group_shapes(gemma), min_params=4096)
     launches = {}
     runs = {}
     for label, method, mkw in SLICE_RUNS + GEMMA_RUNS:
@@ -866,6 +1103,7 @@ def main() -> int:
         f"{label} {b / raw_bits:.4f}" for label, b in bits.items()
         if not label.startswith("gemma3")) + f"; gemma3-gradestc / gemma3-fedavg {gemma_ratio:.4f}")
     if profile_run:
+        profile_encode(group_counts)
         phase_profile(profile_method, arch, kw)
 
     # ---- 5. card vs CPU at a small config, both through the port

@@ -40,7 +40,7 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 #: C signatures of the library's entry points
 _SIGNATURES = {
-    "gradestc_encode_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gradestc_encode_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gradestc_decode_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "gradestc_coeff_quant_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "gradestc_encode_quant_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -146,7 +146,7 @@ def launch(name: str, fn: str, *args) -> None:
     """Call the library's entry point ``fn`` and count one launch of kernel
     ``name``; raise if the launch failed (the entry points return
     ``cudaGetLastError()``)."""
-    rc = getattr(load(), fn)(*args)
+    rc = getattr(_LIB or load(), fn)(*args)
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {rc}")
     launches[name] += 1

@@ -226,13 +226,11 @@ int launch(const T* q, const T* k, const T* v, T* o, int B, int Sq, int Skv, int
            int hd, float scale, int causal, int window, cudaStream_t s) {
   constexpr size_t bytes = smem_bytes<HD>();
   static_assert(bytes <= 232448, "the tiles exceed a block's shared memory");
-  static bool opted_in = false;   // per instantiation; attribute calls are idempotent
-  if (!opted_in) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (rc != cudaSuccess) return (int)rc;
-    opted_in = true;
-  }
+  // The opt-in holds for the current device only: set it before every launch
+  // (it is cheap and idempotent), so a call on any card finds it set.
+  const cudaError_t rc = cudaFuncSetAttribute(
+      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (rc != cudaSuccess) return (int)rc;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, HD><<<grid, THREADS, bytes, s>>>(q, k, v, o, Sq, Skv, H, KV, hd, scale,
                                                        causal, window);

@@ -2,7 +2,11 @@
 the PRNG on CUDA against the same draws on the CPU.
 
 Tolerances: encode/decode, and encode_quant's E and decode_wire's Ghat,
-``||kernel - plain||_F <= 1e-5 ||G||_F``; coeff_quant bit for bit;
+``||kernel - plain||_F <= 1e-5 ||G||_F`` (encode and encode_quant also at a
+split edge, l = LC + 1, below one chunk, Gemma3-1B's MLP shape and k = 1,
+17, 33; two calls on the same inputs give the same bits; with flash, they
+also run on a second card, where the host has one); coeff_quant bit for
+bit;
 encode_quant's codes equal except by one where A/scale*127 sits within
 1e-4 of a half-integer; M = 0 exact; PRNG draws bit for bit; the sign and
 quantizer wire kernels (sign_pack, sign_unpack, quant_pack, unpack_dequant)
@@ -59,7 +63,17 @@ def _inputs(l, k, m, L, seed=0):
     return M, G
 
 
-@pytest.mark.parametrize("L,l,m,k", [(2, 1024, 512, 64), (2, 1024, 500, 64), (3, 384, 77, 8)])
+#: encode and encode_quant beyond the first shapes: (L, l, m, k) at a split
+#: edge (l = LC + 1 of ``split_plan``), below one chunk, at Gemma3-1B's MLP
+#: shape, and at k = 1, 17 and 33 (the scalar copies of M); the splits are
+#: held on the CPU in ``test_torch_encode_plan.py``
+ENCODE_SPLIT_CASES = [(1, 65, 512, 64), (2, 1025, 260, 64), (2, 40, 300, 64),
+                      (6, 6912, 1152, 64), (2, 300, 260, 1), (1, 517, 1000, 17),
+                      (2, 1000, 515, 33)]
+
+
+@pytest.mark.parametrize("L,l,m,k", [(2, 1024, 512, 64), (2, 1024, 500, 64), (3, 384, 77, 8)]
+                         + ENCODE_SPLIT_CASES)
 def test_cuda_kernels_match_plain(cuda, L, l, m, k):
     M, G = (torch.from_numpy(x).to(cuda) for x in _inputs(l, k, m, L))
     n = ops.launch_counts()
@@ -136,7 +150,7 @@ def _code_flips_ok(A, scales, codes, ref_codes):
 
 
 @pytest.mark.parametrize("L,l,m,k", [(2, 1024, 512, 64), (2, 4096, 2816, 64), (3, 384, 77, 8),
-                                     (1, 200, 1030, 20)])
+                                     (1, 200, 1030, 20)] + ENCODE_SPLIT_CASES)
 def test_cuda_encode_quant_and_decode_wire_match_plain(cuda, L, l, m, k):
     M, G = (torch.from_numpy(x).to(cuda) for x in _inputs(l, k, m, L, seed=m))
     n = ops.launch_counts()
@@ -157,6 +171,18 @@ def test_cuda_encode_quant_and_decode_wire_match_plain(cuda, L, l, m, k):
     torch.cuda.synchronize()
     assert ops.launch_counts()["encode_quant"] == n["encode_quant"] + 2
     assert ops.launch_counts()["decode_wire"] == n["decode_wire"] + 1
+
+
+@pytest.mark.parametrize("L,l,m,k", [(2, 4096, 2816, 64), (1, 517, 1000, 17)])
+def test_cuda_encode_kernels_give_the_same_bits_twice(cuda, L, l, m, k):
+    """The split sums are added in a fixed order (no float atomics)."""
+    M, G = (torch.from_numpy(x).to(cuda) for x in _inputs(l, k, m, L, seed=l))
+    A1, E1 = ops.encode(M, G)
+    A2, E2 = ops.encode(M, G)
+    q1, q2 = ops.encode_quant(M, G), ops.encode_quant(M, G)
+    torch.cuda.synchronize()
+    assert _same_bits(A1, A2) and _same_bits(E1, E2)
+    assert torch.equal(q1[0], q2[0]) and _same_bits(q1[1], q2[1]) and _same_bits(q1[2], q2[2])
 
 
 def test_cuda_wire_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -347,6 +373,36 @@ def _qkv(B, Sq, Skv, H, KV, hd, dtype, device, seed=0):
                              ).to(device, dtype),
             torch.from_numpy(rng.standard_normal((B, Skv, KV, hd)).astype(np.float32)
                              ).to(device, dtype))
+
+
+def test_cuda_kernels_run_on_a_second_card(cuda):
+    """A kernel with more than 48 KB of shared memory opts in on the current
+    device only: after calls on the first card, the same calls on the
+    second (the first still current) must launch and agree there too."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    # test_cuda_encode_quant_and_decode_wire_match_plain's inputs at a split edge
+    M0, G0 = (torch.from_numpy(x) for x in _inputs(1025, 64, 260, 2, seed=260))
+    qkv0 = _qkv(1, 128, 128, 4, 1, 256, torch.float32, "cpu", seed=5)
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        M, G = M0.to(dev), G0.to(dev)
+        A, E = ops.encode(M, G)
+        rA, rE = tref.encode_ref(M, G)
+        codes, scales, Eq = ops.encode_quant(M, G)
+        rc, rs, _ = tref.encode_quant_ref(M, G)
+        q, k, v = (x.to(dev) for x in qkv0)
+        out = ops.flash_attention(q, k, v, causal=True, window=64)
+        plain = tref.flash_attention_ref(q, k, v, causal=True, window=64)
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == 0
+        assert A.device == E.device == codes.device == Eq.device == out.device == dev
+        gn = float(G.norm())
+        assert float((A - rA).norm()) <= RTOL * gn and float((E - rE).norm()) <= RTOL * gn
+        assert _code_flips_ok(torch.matmul(M.mT, G), rs, codes, rc)
+        torch.testing.assert_close(scales, rs, rtol=1e-6, atol=0)
+        ship = tref.coeff_dequant_ref(codes, scales)
+        assert float((Eq - (G - M @ ship)).norm()) <= RTOL * gn
+        torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,window,dtype", [
