@@ -29,13 +29,16 @@ script exits non-zero:
    and 5e-2 in bf16; CUDA-event times (median of 20 after warm-up) of the
    kernel, the plain version and the library call (cuBLAS for the GEMM
    kernels, ``scaled_dot_product_attention`` for flash), beside the
-   data-sheet bound, and of the quantizer's uniform draw; for encode and
-   encode_quant also the time per call over 20 back-to-back calls (device
-   time, without the wrapper's host cost) beside the library's, the host
-   time to enqueue a call, and both kernels checked and timed the same way
-   at Gemma3-1B's four compressed groups, summed per client-round; and how
-   many elements of encode_quant's A (its sequential chain over l) differ
-   in their bits from cuBLAS's, at those shapes and at two off the path;
+   data-sheet bound (3xTF32 work at the TF32 rate), and of the quantizer's
+   uniform draw; for encode, encode_quant, decode, decode_wire and flash
+   also the time per call over 20 back-to-back calls (device time, without
+   the wrapper's host cost) beside the library's, the host time to enqueue
+   a call (the GEMM kernels summed per TinyLlama client-round; flash per
+   call at each shape, with its split plan), encode and encode_quant
+   checked and timed the same way at Gemma3-1B's compressed groups, summed
+   per client-round; and how many elements of encode_quant's A (its
+   sequential chain over l) differ in their bits from cuBLAS's, at those
+   shapes and at two off the path;
 4. slice: ``run_fl`` (loop engine) at TinyLlama-1.1B width, cut to 2
    layers and a 4096 vocab, for gradestc on the f32, int8 and bf16 wires,
    svdfed on the f32, bf16 and int8 wires, signsgd, fedpaq (8 and 6 bits),
@@ -61,8 +64,9 @@ script exits non-zero:
 METHOD (gradestc unless named; any method of phase 4) whose round 1 is
 traced by ``torch.profiler``: the device idle share of that
 round and the top ops and kernels by device time; before it, the device
-time of each CUDA kernel that one encode and one encode_quant call launch,
-per TinyLlama group shape and per client-round.
+time of each CUDA kernel that one encode, encode_quant, decode and
+decode_wire call launch, per TinyLlama group shape and per client-round,
+and of flash's main and combine kernels per call at each f32 causal shape.
 
 The line before the last is the ``{"kernels": [...]}`` JSON summary and
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -256,6 +260,19 @@ def encode_bound(shape):
     return bound_ms(4 * L * (l * k + 2 * l * m + k * m), L * l * m, 3 * 4 * L * l * m * k)
 
 
+def decode_bound(shape, wire: bool = False):
+    """decode's bound: M and A read (decode_wire: the int8 codes and the
+    scales, and 2 FP32 operations per coefficient to dequantize them), Ghat
+    written; M A, 2k operations per element of Ghat, in 3xTF32 on the
+    tensor cores."""
+    L, l, m, k = shape
+    n_coef = L * k * m
+    if wire:
+        return bound_ms(4 * L * (l * k + l * m) + n_coef + 4 * L * k * -(-m // 512),
+                        2 * n_coef, 3 * 2 * L * l * m * k)
+    return bound_ms(4 * L * (l * k + k * m + l * m), 0.0, 3 * 2 * L * l * m * k)
+
+
 def encode_quant_bound(shape):
     """encode_quant's: M and G read, E, codes and scales written; M^T G as
     an FP32 chain, the subtraction and 5 FP32 operations per coefficient for
@@ -387,12 +404,13 @@ def phase_kernels(shapes, group_counts):
                        time_ms(lambda: ref.decode_ref(M, At)),
                        time_ms(lambda: torch.matmul(M, At))),
         }
-        b = {"encode": encode_bound(shape),
-             "decode": bound_ms(4 * L * (l * k + k * m + l * m), 2 * L * l * m * k)}
+        b = {"encode": encode_bound(shape), "decode": decode_bound(shape)}
         log("kernels", f"L={L} l={l} m={m} k={k} rel_err A={rel['A']:.3e} E={rel['E']:.3e} "
                        f"Ghat={rel['Ghat']:.3e} M=0 exact={exact0}")
         log_b2b("encode", lambda: gradestc_encode.encode(M, G), lambda: two_gemms(M, G),
                 group_counts.get(shape, 0), tot["encode"], L * l * m * (4 * k + 1))
+        log_b2b("decode", lambda: gradestc_decode.decode(M, At), lambda: torch.matmul(M, At),
+                group_counts.get(shape, 0), tot["decode"], 2 * L * l * m * k)
         for name in ("encode", "decode"):
             ms, plain, lib = t[name]
             bms, by = b[name]
@@ -478,11 +496,13 @@ def phase_wire_kernels(shapes, group_counts):
         # 5 per coefficient for the quantizer (div, mul, rint, clamp, mul)
         b = {"coeff_quant": bound_ms(4 * n_coef + n_coef + 4 * n_scale + 4 * n_coef, 5 * n_coef),
              "encode_quant": encode_quant_bound(shape),
-             "decode_wire": bound_ms(4 * L * (l * k + l * m) + n_coef + 4 * n_scale,
-                                     2 * L * l * m * k + 2 * n_coef)}
+             "decode_wire": decode_bound(shape, wire=True)}
         log_b2b("encode_quant", lambda: gradestc_encode.encode_quant(M, G),
                 lambda: two_gemms(M, G), group_counts.get(shape, 0), tot["encode_quant"],
                 L * l * m * (4 * k + 1))
+        log_b2b("decode_wire", lambda: gradestc_decode.decode_wire(M, codes, scales),
+                lambda: torch.matmul(M, sh), group_counts.get(shape, 0), tot["decode_wire"],
+                2 * L * l * m * k)
         for name in names:
             ms, plain, lib = t[name]
             bms, by = b[name]
@@ -533,7 +553,7 @@ def phase_encode_gemma(shapes, group_counts):
             tot[name]["ms"] += w * ms
             tot[name]["library_ms"] += w * lib_ms
             tot[name]["bound_ms"] += w * bms
-    log_encode_totals("gemma3", tot)
+    log_gemm_totals("gemma3", tot)
 
 
 def log_chain_order(shapes):
@@ -553,9 +573,9 @@ def log_chain_order(shapes):
                        f"{A.numel()}, scales rel {float(((scales - rs).abs() / rs).max()):.3e}")
 
 
-def log_encode_totals(label, tot):
-    """One line per encode kernel: its times summed over a client-round."""
-    for name in ("encode", "encode_quant"):
+def log_gemm_totals(label, tot, names=("encode", "encode_quant")):
+    """One line per GEMM kernel: its times summed over a client-round."""
+    for name in names:
         row = tot[name]
         log("kernels", f"{label} {name} per client-round: kernel {row['ms']:.4f} ms "
                        f"(back-to-back {row['b2b_ms']:.4f}, host {row['host_us']:.1f} us), "
@@ -790,23 +810,42 @@ def visible_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
     return int(ok.sum())
 
 
+#: phase 3's flash cases: (label, (B, S, H, KV, hd), causal, window, dtype);
+#: the JSON row holds the first (TinyLlama's eval, per call) and, under
+#: "at", every f32 causal one
+FLASH_CASES = (("tinyllama", (4, 256, 32, 4, 64), True, 0, torch.float32),
+               ("tinyllama non-causal", (4, 256, 32, 4, 64), False, 0, torch.float32),
+               ("tinyllama bf16", (4, 256, 32, 4, 64), True, 0, torch.bfloat16),
+               ("gemma3 window 512", (2, 1024, 4, 1, 256), True, 512, torch.float32),
+               ("gemma3 window 0", (2, 1024, 4, 1, 256), True, 0, torch.float32))
+
+
+def flash_bound(q, k, v, causal, window):
+    """flash's bound: q, k and v read, o written; QK^T and P.V, 4 hd
+    operations per visible (query, key) pair and head, in 3xTF32 on the
+    tensor cores, and the softmax's max, subtraction, exponential and sum
+    (4 per pair) in FP32.  Returns (ms, by, flops)."""
+    B, S, H, hd = q.shape
+    pairs = B * H * visible_pairs(S, k.shape[1], causal, window)
+    flops = 4 * hd * pairs
+    ms, by = bound_ms(q.element_size() * (2 * q.numel() + k.numel() + v.numel()), 4 * pairs,
+                      3 * flops)
+    return ms, by, flops
+
+
 def phase_flash():
     """Check flash_attention against its plain version (GQA over repeated
     K/V) at TinyLlama's eval shape and Gemma3-1B's, and time it beside the
-    plain version and scaled_dot_product_attention with the same mask.
-    Returns the JSON row's numbers at TinyLlama's eval shape (per call)."""
+    plain version and scaled_dot_product_attention with the same mask, per
+    call and back-to-back.  Returns the JSON row's numbers: TinyLlama's
+    eval shape per call, and every f32 causal case under "at"."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, ref
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    cases = (("tinyllama", (4, 256, 32, 4, 64), True, 0, torch.float32),
-             ("tinyllama non-causal", (4, 256, 32, 4, 64), False, 0, torch.float32),
-             ("tinyllama bf16", (4, 256, 32, 4, 64), True, 0, torch.bfloat16),
-             ("gemma3 window 512", (2, 1024, 4, 1, 256), True, 512, torch.float32),
-             ("gemma3 window 0", (2, 1024, 4, 1, 256), True, 0, torch.float32))
-    main = None
-    for label, (B, S, H, KV, hd), causal, window, dt in cases:
+    main, at = None, {}
+    for label, (B, S, H, KV, hd), causal, window, dt in FLASH_CASES:
         q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dt)
         k = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dt)
         v = torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dt)
@@ -816,8 +855,11 @@ def phase_flash():
         tol = FLASH_TOL[dt]
         err = float((out.float() - plain.float()).abs().max())
         ok = torch.allclose(out.float(), plain.float(), rtol=tol, atol=tol)
+        chunk, nc = flash_attention.flash_plan(B, H, S, S, causal, window)
+        items = len(flash_attention.plan_items(S, S, causal, window, chunk)) * B * H
         log("kernels", f"flash {label} B={B} S={S} H={H} KV={KV} hd={hd} causal={causal} "
-                       f"window={window} {dt}: max abs err {err:.3e} (tol {tol}) ok={ok}")
+                       f"window={window} {dt}: max abs err {err:.3e} (tol {tol}) ok={ok}; "
+                       f"plan chunk {chunk} key tiles, {nc} a q-tile at most, {items} items")
         if not ok:
             raise AssertionError(f"flash_attention differs from its plain version: {label}")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -839,19 +881,26 @@ def phase_flash():
         def lib_fn():
             return F.scaled_dot_product_attention(qt, kr, vr, **sdpa_kw)
 
-        ms = time_ms(lambda: flash_attention.flash_attention(q, k, v, causal=causal,
-                                                             window=window))
+        def fn():
+            return flash_attention.flash_attention(q, k, v, causal=causal, window=window)
+
+        ms = time_ms(fn)
         plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal,
                                                            window=window))
         lib_ms = time_ms(lib_fn)
-        esize = q.element_size()
-        flops = 4 * B * H * hd * visible_pairs(S, S, causal, window)
-        bms, by = bound_ms(esize * (2 * q.numel() + k.numel() + v.numel()), flops)
+        bms, by, flops = flash_bound(q, k, v, causal, window)
         log("kernels", f"  flash_attention: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                        f"library (sdpa) {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
                        f"{flops / ms / 1e9:.2f} TFLOP/s")
+        row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, err=err)
+        log_b2b("flash_attention", fn, lib_fn, 1, row, flops)
         if main is None:
-            main = (dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, err=err), by)
+            main = (row, by)
+        if dt == torch.float32 and causal:
+            at[f"{label} (B, S, H, KV, hd) = {(B, S, H, KV, hd)}"] = {
+                key: row[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "b2b_ms",
+                                          "b2b_library_ms", "host_us", "err")}
+    main[0]["at"] = at
     return main
 
 
@@ -914,38 +963,61 @@ def phase_profile(method: str, arch, kw) -> None:
             log("profile", f"{kind:6s} {dev(e) / 1e3:9.2f} ms {e.count:6d} calls  {e.key[:80]}")
 
 
-def profile_encode(group_counts) -> None:
-    """``--profile``: the device time of each CUDA kernel that one call of
-    encode and of encode_quant launches (torch.profiler over 10 calls), per
-    shape and summed over one client's round (group_counts[shape] calls)."""
+def profile_device_us(fn, reps: int = 10):
+    """{CUDA kernel name: device us per call of ``fn``} (torch.profiler over
+    ``reps`` calls after one warm-up)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import gradestc_encode
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = collections.defaultdict(float)
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        if e.device_type != DeviceType.CUDA or us <= 0:
+            continue
+        kernel = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+        out[kernel.split("<")[0].split("(")[0]] += us / reps
+    return out
+
+
+def profile_kernels(group_counts) -> None:
+    """``--profile``: the device time of each CUDA kernel that one call of
+    encode, encode_quant, decode and decode_wire launches, per TinyLlama
+    group shape and summed over one client's round (group_counts[shape]
+    calls), and of flash's main and combine kernels per call at each f32
+    causal shape of phase 3."""
+    from repro_torch.kernels import flash_attention, gradestc_decode, gradestc_encode, wire
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     tot = collections.defaultdict(float)
     for shape in sorted(group_counts):
         M, G = random_basis(shape, gen)
+        A = torch.matmul(M.mT, G)
+        codes, scales, _ = wire.coeff_quant(A)
         for name, fn in (("encode", lambda: gradestc_encode.encode(M, G)),
-                         ("encode_quant", lambda: gradestc_encode.encode_quant(M, G))):
-            fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    fn()
-                torch.cuda.synchronize()
-            for e in prof.key_averages():
-                us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-                if e.device_type != DeviceType.CUDA or us <= 0:
-                    continue
-                kernel = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
-                kernel = kernel.split("<")[0].split("(")[0]
+                         ("encode_quant", lambda: gradestc_encode.encode_quant(M, G)),
+                         ("decode", lambda: gradestc_decode.decode(M, A)),
+                         ("decode_wire", lambda: gradestc_decode.decode_wire(M, codes, scales))):
+            for kernel, us in profile_device_us(fn).items():
                 log("profile", f"{name} L={shape[0]} l={shape[1]} m={shape[2]} k={shape[3]}: "
-                               f"{kernel} {us / 10:.1f} us/call")
-                tot[f"{name} {kernel}"] += group_counts[shape] * us / 10
-    log("profile", "encode kernels per TinyLlama client-round (device us): " + ", ".join(
+                               f"{kernel} {us:.1f} us/call")
+                tot[f"{name} {kernel}"] += group_counts[shape] * us
+    log("profile", "codec kernels per TinyLlama client-round (device us): " + ", ".join(
         f"{key} {us:.1f}" for key, us in tot.items()))
+    for label, (B, S, H, KV, hd), causal, window, dt in FLASH_CASES:
+        if dt != torch.float32 or not causal:
+            continue
+        q = torch.randn(B, S, H, hd, device="cuda", generator=gen)
+        k, v = (torch.randn(B, S, KV, hd, device="cuda", generator=gen) for _ in range(2))
+        us = profile_device_us(lambda: flash_attention.flash_attention(q, k, v, causal=causal,
+                                                                       window=window))
+        log("profile", f"flash {label}: " + ", ".join(f"{kernel} {t:.1f} us/call"
+                                                      for kernel, t in us.items()))
 
 
 def main() -> int:
@@ -997,7 +1069,7 @@ def main() -> int:
     wtot, wbound_by = phase_wire_kernels(shapes, group_counts)
     tot.update(wtot)
     bound_by.update(wbound_by)
-    log_encode_totals("tinyllama", tot)
+    log_gemm_totals("tinyllama", tot, ("encode", "encode_quant", "decode", "decode_wire"))
     gemma = gemma_arch()
     gemma_policy = make_policy(model.param_group_shapes(gemma), min_params=4096)
     gemma_counts = collections.Counter((p.stack, p.l, p.m, p.k)
@@ -1103,7 +1175,7 @@ def main() -> int:
         f"{label} {b / raw_bits:.4f}" for label, b in bits.items()
         if not label.startswith("gemma3")) + f"; gemma3-gradestc / gemma3-fedavg {gemma_ratio:.4f}")
     if profile_run:
-        profile_encode(group_counts)
+        profile_kernels(group_counts)
         phase_profile(profile_method, arch, kw)
 
     # ---- 5. card vs CPU at a small config, both through the port
@@ -1168,6 +1240,9 @@ def main() -> int:
         }
         if run is None:
             row["path"] = "kernel phase only"
+        for key in ("b2b_ms", "b2b_library_ms", "host_us", "at"):
+            if key in t:
+                row[key] = t[key]
         if name == "flash_attention":
             row["per"] = "call at TinyLlama's eval shape (4, 256, 32, 4, 64), causal, f32"
         rows.append(row)

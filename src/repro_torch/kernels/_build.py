@@ -16,6 +16,7 @@ import time: the CPU tests import every module without a CUDA toolkit.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,7 +28,8 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["load", "launch", "stream", "BUILD_ROOT", "NVCC_FLAGS", "last_build", "launches"]
+__all__ = ["load", "launch", "stream", "device", "BUILD_ROOT", "NVCC_FLAGS", "last_build",
+           "launches"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -52,7 +54,8 @@ _SIGNATURES = {
     "quant_block_quant_f32": [_P, _P, _P, _P, _L, _I, _I, _P],
     "quant_block_dequant": [_P, _P, _P, _L, _I, _I, _I, _P],
     "wire_coeff_dequant_f32": [_P, _P, _P, _L, _I, _P],
-    "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                            _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -153,5 +156,16 @@ def launch(name: str, fn: str, *args) -> None:
 
 
 def stream(x: torch.Tensor) -> int:
-    """The current CUDA stream of ``x``'s device, as the entry points take it."""
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """The current CUDA stream of ``x``'s device, as the entry points take it:
+    the raw handle, without building the Stream object that
+    ``torch.cuda.current_stream(dev).cuda_stream`` builds (a wrapper's host
+    time is on the critical path of every small launch)."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
+
+
+def device(x: torch.Tensor):
+    """A context that makes ``x``'s device current for a launch; a no-op
+    when it is current already, skipping ``torch.cuda.device``'s exchange."""
+    if x.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(x.device)

@@ -5,9 +5,14 @@ GEMM (the server side of the int8 coefficient wire).
 ``decode`` replaces ``src/repro/kernels/gradestc_decode.py::decode_pallas``
 and ``decode_wire`` replaces ``decode_wire_pallas`` in the same file.  One
 launch covers a group's L stacked layers; the kernels live in
-``csrc/gradestc.cu`` beside the encode kernels.  Their plain versions are
-``ref.decode_ref`` and ``ref.decode_ref(M, ref.coeff_dequant_ref(codes,
-scales))``.  On an H100 at k = 64 FP32 FMA issue bounds both.
+``csrc/gradestc.cu`` beside the encode kernels: both are encode's residual
+kernel without its G tile (128 x 64 output tiles, 3xTF32 on the tensor
+cores, M and X by cp.async); on an H100 their bound is the write of Ghat.
+decode_wire dequantizes its int8 tile as coeff_dequant does, so it equals
+``decode(M, coeff_dequant(codes, scales))`` bit for bit.  Their plain
+versions are ``ref.decode_ref`` and ``ref.decode_ref(M,
+ref.coeff_dequant_ref(codes, scales))``; Ghat differs from cuBLAS's bits
+(within 1e-5 ||G||_F), and M = 0 gives exactly 0.
 """
 
 from __future__ import annotations
@@ -33,14 +38,9 @@ def decode(M: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     out = torch.empty((L, l, m), dtype=M.dtype, device=M.device)
     if L * l * m == 0:
         return out
-    lib = _build.load()
-    with torch.cuda.device(M.device):
-        stream = torch.cuda.current_stream(M.device).cuda_stream
-        rc = lib.gradestc_decode_f32(M.data_ptr(), A.data_ptr(), out.data_ptr(),
-                                     L, l, m, k, stream)
-    if rc != 0:
-        raise RuntimeError(f"gradestc_decode_f32 launch failed: CUDA error {rc}")
-    _build.launches["decode"] += 1
+    with _build.device(M):
+        _build.launch("decode", "gradestc_decode_f32", M.data_ptr(), A.data_ptr(),
+                      out.data_ptr(), L, l, m, k, _build.stream(M))
     return out
 
 
@@ -61,12 +61,7 @@ def decode_wire(M: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> t
     out = torch.empty((L, l, m), dtype=M.dtype, device=M.device)
     if L * l * m == 0:
         return out
-    lib = _build.load()
-    with torch.cuda.device(M.device):
-        stream = torch.cuda.current_stream(M.device).cuda_stream
-        rc = lib.gradestc_decode_wire_f32(M.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-                                          out.data_ptr(), L, l, m, k, stream)
-    if rc != 0:
-        raise RuntimeError(f"gradestc_decode_wire_f32 launch failed: CUDA error {rc}")
-    _build.launches["decode_wire"] += 1
+    with _build.device(M):
+        _build.launch("decode_wire", "gradestc_decode_wire_f32", M.data_ptr(), codes.data_ptr(),
+                      scales.data_ptr(), out.data_ptr(), L, l, m, k, _build.stream(M))
     return out

@@ -89,7 +89,7 @@ def encode(M: torch.Tensor, G: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
         return A.zero_(), E
     S, LC = split_plan(L, l, m)
     P = torch.empty((L, S, k, m), dtype=torch.float32, device=G.device)   # the partials
-    with torch.cuda.device(G.device):
+    with _build.device(G):
         _build.launch("encode", "gradestc_encode_f32", M.data_ptr(), G.data_ptr(), A.data_ptr(),
                       E.data_ptr(), P.data_ptr(), L, l, m, k, S, LC, _build.stream(G))
     return A, E
@@ -111,7 +111,7 @@ def encode_quant(M: torch.Tensor, G: torch.Tensor
     if L * l * m == 0:
         return codes, scales, E
     A, ship = torch.empty((2, L, k, m), dtype=torch.float32, device=G.device)   # one scratch
-    with torch.cuda.device(G.device):
+    with _build.device(G):
         _build.launch("encode_quant", "gradestc_encode_quant_f32", M.data_ptr(), G.data_ptr(),
                       codes.data_ptr(), scales.data_ptr(), A.data_ptr(), ship.data_ptr(),
                       E.data_ptr(), L, l, m, k, _build.stream(G))

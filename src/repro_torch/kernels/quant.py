@@ -52,7 +52,7 @@ def block_quant(g: torch.Tensor, u: torch.Tensor, block: int = 512, bits: int = 
     codes = torch.empty((rows * block,), dtype=torch.int8, device=g.device)
     scales = torch.empty((rows,), dtype=torch.float32, device=g.device)
     if n:
-        with torch.cuda.device(g.device):
+        with _build.device(g):
             _build.launch("block_quant", "quant_block_quant_f32", g.data_ptr(), u.data_ptr(),
                           codes.data_ptr(), scales.data_ptr(), n, block, bits,
                           _build.stream(g))
@@ -75,7 +75,7 @@ def block_dequant(codes: torch.Tensor, scales: torch.Tensor, n: int, block: int 
                          f"do not hold {n} values in blocks of {block}")
     out = torch.empty((n,), dtype=out_dtype, device=codes.device)
     if n:
-        with torch.cuda.device(codes.device):
+        with _build.device(codes):
             _build.launch("block_dequant", "quant_block_dequant", codes.data_ptr(),
                           scales.data_ptr(), out.data_ptr(), n, block, bits,
                           OUT_DTYPES[out_dtype], _build.stream(codes))

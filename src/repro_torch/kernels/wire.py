@@ -64,7 +64,7 @@ def coeff_quant(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tens
                          device=A.device)
     ship = torch.empty_like(A)
     if L * k * m:
-        with torch.cuda.device(A.device):
+        with _build.device(A):
             _build.launch("coeff_quant", "gradestc_coeff_quant_f32", A.data_ptr(),
                           codes.data_ptr(), scales.data_ptr(), ship.data_ptr(), L, k, m,
                           _build.stream(A))
@@ -81,7 +81,7 @@ def coeff_dequant(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"scales {tuple(scales.shape)} do not fit codes {tuple(codes.shape)}")
     out = torch.empty((L, k, m), dtype=torch.float32, device=codes.device)
     if L * k * m:
-        with torch.cuda.device(codes.device):
+        with _build.device(codes):
             _build.launch("coeff_dequant", "wire_coeff_dequant_f32", codes.data_ptr(),
                           scales.data_ptr(), out.data_ptr(), L * k, m, _build.stream(codes))
     return out
@@ -96,7 +96,7 @@ def sign_pack(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     words = torch.empty((-(-n // 32),), dtype=torch.int32, device=g.device)
     rowsums = torch.empty((_rows(n),), dtype=torch.float32, device=g.device)
     if n:
-        with torch.cuda.device(g.device):
+        with _build.device(g):
             _build.launch("sign_pack", "wire_sign_pack_f32", g.data_ptr(), words.data_ptr(),
                           rowsums.data_ptr(), n, _build.stream(g))
     return words, rowsums
@@ -112,7 +112,7 @@ def sign_unpack(words: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tenso
         raise ValueError(f"{words.shape[0]} words do not hold {n} signs")
     out = torch.empty((n,), dtype=torch.float32, device=words.device)
     if n:
-        with torch.cuda.device(words.device):
+        with _build.device(words):
             _build.launch("sign_unpack", "wire_sign_unpack_f32", words.data_ptr(),
                           scale.data_ptr(), out.data_ptr(), n, _build.stream(words))
     return out
@@ -134,7 +134,7 @@ def quant_pack(g: torch.Tensor, u: torch.Tensor, bits: int = 8
                         device=g.device)
     scales = torch.empty((rows,), dtype=torch.float32, device=g.device)
     if n:
-        with torch.cuda.device(g.device):
+        with _build.device(g):
             _build.launch("quant_pack", "wire_quant_pack_f32", g.data_ptr(), u.data_ptr(),
                           words.data_ptr(), scales.data_ptr(), n, bits, _build.stream(g))
     return words, scales
@@ -154,7 +154,7 @@ def unpack_dequant(words: torch.Tensor, scales: torch.Tensor, n: int, bits: int 
                          f"do not hold {n} {bits}-bit codes")
     out = torch.empty((n,), dtype=torch.float32, device=words.device)
     if n:
-        with torch.cuda.device(words.device):
+        with _build.device(words):
             _build.launch("unpack_dequant", "wire_unpack_dequant_f32", words.data_ptr(),
                           scales.data_ptr(), out.data_ptr(), n, bits, _build.stream(words))
     return out

@@ -14,8 +14,13 @@ and the block quantizer (block_quant, block_dequant, also through the wire
 route of the other bit widths) bit for bit, at every flat group size of the
 TinyLlama-width slice and at ragged sizes; coeff_dequant bit for bit;
 flash_attention within rtol = atol = 1e-4 in f32 and 5e-2 with bf16 inputs
-(the JAX tests' tolerances), and an eval forward on the card launches it
-once per layer while a ``torch.func.grad`` step launches it never.
+(the JAX tests' tolerances), also where its plan splits a query tile's
+keys (at a one-tile chunk, Sq != Skv, rows that see no key), and an eval
+forward on the card launches it once per layer while a ``torch.func.grad``
+step launches it never; decode and
+decode_wire at k = 1, 17, 33 and ragged l and m, decode_wire bit-equal to
+decode(M, coeff_dequant(codes, scales)); flash, decode and decode_wire give
+the same bits twice.
 
 Every test here needs a CUDA card and skips without one (the kernels have
 no CPU mode).  The file imports neither jax nor the JAX package, so it runs
@@ -183,6 +188,31 @@ def test_cuda_encode_kernels_give_the_same_bits_twice(cuda, L, l, m, k):
     torch.cuda.synchronize()
     assert _same_bits(A1, A2) and _same_bits(E1, E2)
     assert torch.equal(q1[0], q2[0]) and _same_bits(q1[1], q2[1]) and _same_bits(q1[2], q2[2])
+
+
+@pytest.mark.parametrize("L,l,m,k", [(2, 1024, 512, 64), (3, 384, 77, 8)] + ENCODE_SPLIT_CASES)
+def test_cuda_decode_kernels_match_plain(cuda, L, l, m, k):
+    """decode and decode_wire on the residual kernel's tiling: within RTOL
+    of the plain version, decode_wire bit-equal to decode(M,
+    coeff_dequant(codes, scales)), M = 0 exactly 0, the same bits twice."""
+    M, G = (torch.from_numpy(x).to(cuda) for x in _inputs(l, k, m, L, seed=k + m))
+    A = torch.matmul(M.mT, G)
+    gn = float(G.norm())
+    n = ops.launch_counts()
+    Ghat = ops.decode(M, A)
+    assert float((Ghat - tref.decode_ref(M, A)).norm()) <= RTOL * gn
+    codes, scales, _ = ops.coeff_quant(A)
+    ship = ops.coeff_dequant(codes, scales)
+    wire_hat = ops.decode_wire(M, codes, scales)
+    assert _same_bits(wire_hat, ops.decode(M, ship))
+    assert float((wire_hat - tref.decode_ref(M, ship)).norm()) <= RTOL * gn
+    assert not bool(ops.decode(torch.zeros_like(M), A).any())
+    assert not bool(ops.decode_wire(torch.zeros_like(M), codes, scales).any())
+    assert _same_bits(ops.decode(M, A), Ghat)
+    assert _same_bits(ops.decode_wire(M, codes, scales), wire_hat)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode"] == n["decode"] + 4
+    assert ops.launch_counts()["decode_wire"] == n["decode_wire"] + 3
 
 
 def test_cuda_wire_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -376,9 +406,10 @@ def _qkv(B, Sq, Skv, H, KV, hd, dtype, device, seed=0):
 
 
 def test_cuda_kernels_run_on_a_second_card(cuda):
-    """A kernel with more than 48 KB of shared memory opts in on the current
-    device only: after calls on the first card, the same calls on the
-    second (the first still current) must launch and agree there too."""
+    """A kernel with more than 48 KB of shared memory (encode's and the
+    decodes' residual kernel, flash) opts in on the current device only:
+    after calls on the first card, the same calls on the second (the first
+    still current) must launch and agree there too."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards")
     # test_cuda_encode_quant_and_decode_wire_match_plain's inputs at a split edge
@@ -390,18 +421,22 @@ def test_cuda_kernels_run_on_a_second_card(cuda):
         rA, rE = tref.encode_ref(M, G)
         codes, scales, Eq = ops.encode_quant(M, G)
         rc, rs, _ = tref.encode_quant_ref(M, G)
+        Ghat, wire_hat = ops.decode(M, rA.contiguous()), ops.decode_wire(M, codes, scales)
         q, k, v = (x.to(dev) for x in qkv0)
         out = ops.flash_attention(q, k, v, causal=True, window=64)
         plain = tref.flash_attention_ref(q, k, v, causal=True, window=64)
         torch.cuda.synchronize(dev)
         assert torch.cuda.current_device() == 0
         assert A.device == E.device == codes.device == Eq.device == out.device == dev
+        assert Ghat.device == wire_hat.device == dev
         gn = float(G.norm())
         assert float((A - rA).norm()) <= RTOL * gn and float((E - rE).norm()) <= RTOL * gn
         assert _code_flips_ok(torch.matmul(M.mT, G), rs, codes, rc)
         torch.testing.assert_close(scales, rs, rtol=1e-6, atol=0)
         ship = tref.coeff_dequant_ref(codes, scales)
         assert float((Eq - (G - M @ ship)).norm()) <= RTOL * gn
+        assert float((Ghat - tref.decode_ref(M, rA)).norm()) <= RTOL * gn
+        assert float((wire_hat - tref.decode_ref(M, ship)).norm()) <= RTOL * gn
         torch.testing.assert_close(out, plain, rtol=1e-4, atol=1e-4)
 
 
@@ -416,6 +451,10 @@ def test_cuda_kernels_run_on_a_second_card(cuda):
     (1, 100, 30, 4, 2, 32, True, 8, torch.float32),          # rows past Skv + window: no key
     (1, 128, 128, 4, 2, 32, True, 0, torch.bfloat16),
     (2, 256, 256, 4, 1, 256, True, 64, torch.bfloat16),
+    (1, 192, 192, 8, 2, 64, True, 0, torch.float32),         # split edge: a one-tile chunk
+    (1, 320, 200, 4, 2, 64, True, 0, torch.float32),         # Sq > Skv, split
+    (1, 100, 300, 4, 1, 128, False, 0, torch.float32),       # Sq < Skv, split
+    (1, 600, 300, 4, 2, 32, True, 16, torch.float32),        # split rows that see no key
 ])
 def test_cuda_flash_matches_plain(cuda, B, Sq, Skv, H, KV, hd, causal, window, dtype):
     q, k, v = _qkv(B, Sq, Skv, H, KV, hd, dtype, cuda, seed=Sq + hd)
@@ -427,6 +466,17 @@ def test_cuda_flash_matches_plain(cuda, B, Sq, Skv, H, KV, hd, causal, window, d
     assert out.dtype == dtype and out.shape == q.shape
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(out.float(), plain.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,hd,causal,window", [
+    (2, 1024, 1024, 4, 1, 256, True, 0), (1, 600, 300, 4, 2, 32, True, 16)])
+def test_cuda_flash_gives_the_same_bits_twice(cuda, B, Sq, Skv, H, KV, hd, causal, window):
+    """The partials merge in chunk order (no atomics)."""
+    q, k, v = _qkv(B, Sq, Skv, H, KV, hd, torch.float32, cuda, seed=Sq)
+    a = ops.flash_attention(q, k, v, causal=causal, window=window)
+    b = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _same_bits(a, b)
 
 
 def test_cuda_flash_refuses_what_the_kernel_does_not_take(cuda):
