@@ -18,10 +18,13 @@ script exits non-zero:
    by one where A/scale*127 sits within 1e-4 of a half-integer, and the
    exact M = 0 cases; the quantizer wire (sign_pack, sign_unpack,
    quant_pack, unpack_dequant) bit for bit at each flat group size and a
-   ragged one (8 bits, and 2 and 4 on the ragged size); block_quant and
-   block_dequant bit for bit at each flat group size and the ragged one,
-   at bits 3, 5, 6 and 7 with 512-value blocks and bits 6 with 256, and the
-   6-bit wire route against its oracle; coeff_dequant bit for bit at the
+   ragged one (bits 8, 2 and 4; unpack_dequant also on operands one element
+   off 16-byte alignment); block_quant and block_dequant bit for bit at
+   each flat group size and the ragged one, at bits 2 to 8 with 512-value
+   blocks and bits 6 with 256, 96, 100 and 30 (block_dequant also in bf16
+   and f16 and off alignment), and the 6-bit wire route against its oracle;
+   unpack_dequant and block_dequant also back-to-back with their host time
+   per call, summed per TinyLlama client-round; coeff_dequant bit for bit at the
    SVDFed-int8 group shapes, and decode(M, coeff_dequant(codes, scales))
    against decode_wire(M, codes, scales); flash_attention at TinyLlama's
    eval shape (causal; also non-causal, and with bf16 inputs) and at
@@ -66,7 +69,9 @@ traced by ``torch.profiler``: the device idle share of that
 round and the top ops and kernels by device time; before it, the device
 time of each CUDA kernel that one encode, encode_quant, decode and
 decode_wire call launch, per TinyLlama group shape and per client-round,
-and of flash's main and combine kernels per call at each f32 causal shape.
+of unpack_dequant and block_dequant per flat group size and per
+client-round, and of flash's main and combine kernels per call at each f32
+causal shape.
 
 The line before the last is the ``{"kernels": [...]}`` JSON summary and
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -373,6 +378,20 @@ def log_b2b(name, fn, lib, w, row, flops):
     row["host_us"] = row.get("host_us", 0.0) + w * host
 
 
+def log_b2b_alone(name, fn, w, row, bound, repeats: int = 5):
+    """Print a kernel without a library yardstick back-to-back (time per
+    call over 20 calls, and its host cost per call, each the median of
+    ``repeats`` such runs: the host time of one run swings by a third on a
+    shared host) beside its bound; add them, w calls a client-round, to
+    ``row``."""
+    runs = [time_b2b(fn) for _ in range(repeats)]
+    ms, host = (statistics.median(r[i] for r in runs) for i in (0, 1))
+    log("kernels", f"  {name} back-to-back x20, median of {repeats}: kernel {ms:.4f} ms/call "
+                   f"({bound / ms:.1%} of the bound), host {host:.1f} us/call")
+    row["b2b_ms"] = row.get("b2b_ms", 0.0) + w * ms
+    row["host_us"] = row.get("host_us", 0.0) + w * host
+
+
 def phase_kernels(shapes, group_counts):
     """Check and time both kernels at each (L, l, m, k); returns the JSON rows'
     measured numbers, summed over one client's round (group_counts[shape]
@@ -583,12 +602,23 @@ def log_gemm_totals(label, tot, names=("encode", "encode_quant")):
                        f"{row['b2b_library_ms']:.4f}), bound {row['bound_ms']:.4f}")
 
 
+def offset_copy(x):
+    """A contiguous copy of ``x`` one element into a fresh buffer: not
+    16-byte aligned, so the kernels take their scalar paths."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:].copy_(x)
+    return buf[1:]
+
+
 def phase_quant_kernels(flat_counts, ragged: int = 70_001):
     """Check and time the sign and quantizer wire kernels on flat vectors of
     each group size (and a ragged one) against their plain versions, bit for
-    bit; like ``phase_kernels``, numbers summed over one client's round
-    (flat_counts[n] launches of size n).  Also times the quantizer's uniform
-    draw over the padded length.  Returns (totals, bound_by, uniform_ms)."""
+    bit (quant_pack and unpack_dequant at bits 8, 2 and 4; unpack_dequant
+    also on operands one element off 16-byte alignment); like
+    ``phase_kernels``, numbers summed over one client's round (flat_counts[n]
+    launches of size n), with unpack_dequant also back-to-back.  Also times
+    the quantizer's uniform draw over the padded length.  Returns (totals,
+    bound_by, uniform_ms)."""
     import torch.nn.functional as F
 
     from repro_torch.core import prng
@@ -629,16 +659,19 @@ def phase_quant_kernels(flat_counts, ragged: int = 70_001):
                                 float((rowsums - rrows).abs().max())),
                "sign_unpack": float((out - rout).abs().max()),
                "quant_pack": 0.0, "unpack_dequant": 0.0}
-        for bits in ((8,) if n != ragged else (8, 2, 4)):
+        for bits in (8, 2, 4):
             qw, qs = wire.quant_pack(g, u, bits)
             rqw, rqs = ref.quant_pack_ref(gp, u, 512, bits)
             deq = wire.unpack_dequant(qw, qs, n, bits)
             rdeq = ref.unpack_dequant_ref(rqw, rqs, n_p, 512, bits)[:n]
+            # the scalar path: words and scales one element off alignment
+            mis = wire.unpack_dequant(offset_copy(qw), offset_copy(qs), n, bits)
             ok[f"quant_pack/{bits}"] = torch.equal(u32(qw), rqw) and same(qs, rqs)
-            ok[f"unpack_dequant/{bits}"] = same(deq, rdeq)
+            ok[f"unpack_dequant/{bits}"] = same(deq, rdeq) and same(mis, rdeq)
             err["quant_pack"] = max(err["quant_pack"], float((u32(qw) - rqw).abs().max()),
                                     float((qs - rqs).abs().max()))
-            err["unpack_dequant"] = max(err["unpack_dequant"], float((deq - rdeq).abs().max()))
+            err["unpack_dequant"] = max(err["unpack_dequant"], float((deq - rdeq).abs().max()),
+                                        float((mis - rdeq).abs().max()))
         torch.cuda.synchronize()
         if not all(ok.values()):
             raise AssertionError(f"quantizer wire kernel differs from its plain version at "
@@ -663,6 +696,8 @@ def phase_quant_kernels(flat_counts, ragged: int = 70_001):
         w = flat_counts.get(n, 0)
         log("kernels", f"n={n} rows={rows} bit-exact {ok}; uniform draw over {n_p}: "
                        f"{t_uniform:.4f} ms, launches/client-round {w}")
+        log_b2b_alone("unpack_dequant", lambda: wire.unpack_dequant(qw, qs, n, 8), w,
+                      tot["unpack_dequant"], b["unpack_dequant"][0])
         uniform_ms += w * t_uniform
         for name in names:
             (ms, plain), (bms, by) = t[name], b[name]
@@ -679,11 +714,15 @@ def phase_quant_kernels(flat_counts, ragged: int = 70_001):
 
 def phase_block_quant_kernels(flat_counts, ragged: int = 70_001):
     """Check block_quant and block_dequant bit for bit against their plain
-    versions at every flat group size and a ragged one, at bits 3, 5, 6 and
-    7 with 512-value blocks and bits 6 with 256, and the 6-bit wire route
+    versions at every flat group size and a ragged one, at every bits from 2
+    to 8 with 512-value blocks and bits 6 with blocks of 256, 96, 100 (not a
+    multiple of 16) and 30 (not a multiple of block_dequant's 4-value
+    chunks); block_dequant also in bf16 and f16 and on operands one element
+    off alignment; and the 6-bit wire route
     (``ops.block_quant_wire``/``block_dequant_wire``) against its oracle;
     time both kernels at 6 bits and 512 (the fedpaq-6bit run), summed over
-    one client's round like ``phase_kernels``."""
+    one client's round like ``phase_kernels``, block_dequant also
+    back-to-back."""
     import torch.nn.functional as F
 
     from repro_torch.core import prng
@@ -702,7 +741,8 @@ def phase_block_quant_kernels(flat_counts, ragged: int = 70_001):
         g[::7] = 0.0
         key = prng.PRNGKey(n + 1, "cuda")
         ok = {}
-        for bits, block in ((3, 512), (5, 512), (6, 512), (7, 512), (6, 256)):
+        for bits, block in ((2, 512), (3, 512), (4, 512), (5, 512), (6, 512), (7, 512),
+                            (8, 512), (6, 256), (6, 96), (6, 100), (6, 30)):
             pad = (-n) % block
             n_p = n + pad
             u = prng.uniform(key, (n_p,))
@@ -712,6 +752,15 @@ def phase_block_quant_kernels(flat_counts, ragged: int = 70_001):
             d = quant.block_dequant(c, sc, n, block, bits)
             rd = ref.block_dequant_ref(rc, rsc, block, bits)[:n]
             ok[f"{bits}/{block}"] = torch.equal(c, rc) and same(sc, rsc) and same(d, rd)
+            if bits == 6 and block in (512, 100, 30):
+                # bf16 and f16, each rounded once from the f32 value, and the
+                # scalar path on codes and scales one element off alignment
+                for dt in (torch.bfloat16, torch.float16):
+                    h = quant.block_dequant(c, sc, n, block, bits, dt)
+                    ok[f"{bits}/{block}/{dt}"] = torch.equal(h.view(torch.int16),
+                                                             rd.to(dt).view(torch.int16))
+                mis = quant.block_dequant(offset_copy(c), offset_copy(sc), n, block, bits)
+                ok[f"{bits}/{block}/offset"] = same(mis, rd)
             tot["block_quant"]["err"] = max(tot["block_quant"]["err"],
                                             float((c.int() - rc.int()).abs().max()),
                                             float((sc - rsc).abs().max()))
@@ -742,6 +791,8 @@ def phase_block_quant_kernels(flat_counts, ragged: int = 70_001):
              "block_dequant": bound_ms(n_p + 4 * rows + 4 * n, 2 * n)}
         w = flat_counts.get(n, 0)
         log("kernels", f"n={n} block quantizer bit-exact {ok}, launches/client-round {w}")
+        log_b2b_alone("block_dequant (6 bits)", lambda: quant.block_dequant(c, sc, n, 512, 6),
+                      w, tot["block_dequant"], b["block_dequant"][0])
         for name in names:
             (ms, plain), (bms, by) = t[name], b[name]
             bound_by[name] = by
@@ -985,13 +1036,17 @@ def profile_device_us(fn, reps: int = 10):
     return out
 
 
-def profile_kernels(group_counts) -> None:
+def profile_kernels(group_counts, flat_counts) -> None:
     """``--profile``: the device time of each CUDA kernel that one call of
     encode, encode_quant, decode and decode_wire launches, per TinyLlama
     group shape and summed over one client's round (group_counts[shape]
-    calls), and of flash's main and combine kernels per call at each f32
-    causal shape of phase 3."""
-    from repro_torch.kernels import flash_attention, gradestc_decode, gradestc_encode, wire
+    calls); of unpack_dequant (8 bits) and block_dequant (6 bits) per flat
+    group size and summed the same way (flat_counts[n] calls); and of
+    flash's main and combine kernels per call at each f32 causal shape of
+    phase 3."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import (flash_attention, gradestc_decode, gradestc_encode, quant,
+                                     wire)
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     tot = collections.defaultdict(float)
@@ -1008,6 +1063,20 @@ def profile_kernels(group_counts) -> None:
                                f"{kernel} {us:.1f} us/call")
                 tot[f"{name} {kernel}"] += group_counts[shape] * us
     log("profile", "codec kernels per TinyLlama client-round (device us): " + ", ".join(
+        f"{key} {us:.1f}" for key, us in tot.items()))
+    tot = collections.defaultdict(float)
+    for n in sorted(flat_counts):
+        g = torch.randn(n, device="cuda", generator=gen) * 1e-3
+        u = prng.uniform(prng.PRNGKey(n, "cuda"), (-(-n // 512) * 512,))
+        words, scales = wire.quant_pack(g, u, 8)
+        codes, cscales = quant.block_quant(g, u, 512, 6)
+        for name, fn in (("unpack_dequant", lambda: wire.unpack_dequant(words, scales, n, 8)),
+                         ("block_dequant", lambda: quant.block_dequant(codes, cscales, n, 512,
+                                                                       6))):
+            for kernel, us in profile_device_us(fn).items():
+                log("profile", f"{name} n={n}: {kernel} {us:.1f} us/call")
+                tot[name] += flat_counts[n] * us
+    log("profile", "dequantizers per TinyLlama client-round (device us): " + ", ".join(
         f"{key} {us:.1f}" for key, us in tot.items()))
     for label, (B, S, H, KV, hd), causal, window, dt in FLASH_CASES:
         if dt != torch.float32 or not causal:
@@ -1095,6 +1164,10 @@ def main() -> int:
         f"{k} {tot[k]['ms']:.4f} ms (plain {tot[k]['plain_ms']:.4f}, bound "
         f"{tot[k]['bound_ms']:.4f})" for k in (*qtot, *btot))
         + f"; uniform draws {uniform_ms:.4f} ms")
+    for k in ("unpack_dequant", "block_dequant"):
+        log("kernels", f"tinyllama {k} per client-round: kernel {tot[k]['ms']:.4f} ms "
+                       f"(back-to-back {tot[k]['b2b_ms']:.4f}, host {tot[k]['host_us']:.1f} us), "
+                       f"bound {tot[k]['bound_ms']:.4f}")
     log("kernels", "clocks/power after timing: "
         + nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
 
@@ -1175,7 +1248,7 @@ def main() -> int:
         f"{label} {b / raw_bits:.4f}" for label, b in bits.items()
         if not label.startswith("gemma3")) + f"; gemma3-gradestc / gemma3-fedavg {gemma_ratio:.4f}")
     if profile_run:
-        profile_kernels(group_counts)
+        profile_kernels(group_counts, flat_counts)
         phase_profile(profile_method, arch, kw)
 
     # ---- 5. card vs CPU at a small config, both through the port

@@ -61,13 +61,37 @@
 //     np.float32(1) / np.float32(levels).
 // No --use_fast_math.
 //
-// Design (simple and right first; speed is later work):
+// Design:
 //   sign_pack: 256 threads, one warp per 512-value row, 16 coalesced loads a
 //     lane; the ragged last row loads 0.0 past n.
-//   sign_unpack, unpack_dequant, block_dequant, coeff_dequant: one thread
-//     per output value; the word (or scale) is read through the L1 by the
-//     threads that share it.  coeff_dequant masks the ragged last 512-column
-//     block of each row by writing only the m columns that exist.
+//   sign_unpack, coeff_dequant: one thread per output value; the word (or
+//     scale) is read through the L1 by the threads that share it.
+//     coeff_dequant masks the ragged last 512-column block of each row by
+//     writing only the m columns that exist.
+//   unpack_dequant, block_dequant (redesigned for the H100): they write 4
+//     bytes per value (2 in bf16 or f16) and read 1/4 to 1, so the stores
+//     bound them.  One thread per value, each reloading its row's scale and
+//     (block_dequant) dividing by levels and by the runtime block, held them
+//     at 42-46% of the HBM bound; so did a thread per 16-byte code load,
+//     because its 16 values made 64 contiguous bytes a thread, so each warp
+//     store covered 2 KB at a 64-byte stride and half of every sector.  What
+//     the card rewards is a warp store of 512 contiguous bytes.  So a thread
+//     step is a chunk of 4 values: one load of its 4 codes (bits/2 bytes of
+//     the words; 4 int8 codes), one scale, one 16-byte streaming store
+//     (__stcs: nothing here reads the output again; 8 bytes in bf16 or f16),
+//     and lane L of a warp takes chunk base + L, so loads and stores are
+//     contiguous across the warp.  A block of 256 threads takes 4 chunks a
+//     thread, 256 apart, every load in flight before its stores.  The chunk's
+//     row is c / 128 (a shift) or c / (block / 4), one 32-bit division per 4
+//     values; f32(1/levels) is a constant (unpack) or one IEEE division per
+//     thread (block_dequant), and each value is code * (scale * inv), in that
+//     order, so the bits stay the reference's.  The ragged tail, a block that
+//     is not a multiple of 4, and operands not aligned for the vector loads
+//     and stores take a scalar path inside the same kernel (block_dequant
+//     steps the row where a chunk crosses into the next).  The host makes the
+//     plan -- how many chunks take the vector path, and the grid
+//     (wire.dequant_plan) -- and the entry points check it; n < 2^31, so
+//     indices are 32-bit.
 //   quant_pack: 256 threads, one warp per row; lane L owns the 16 values
 //     16L..16L+15 of its row (four float4 loads of g and of u when the row is
 //     whole and aligned), keeps them in registers across the warp's max
@@ -90,6 +114,13 @@ constexpr int ROW = 512;           // values per wire row (ref.WIRE_BLOCK)
 constexpr int ROW_THREADS = 256;   // 8 warps, one row each
 constexpr int ROWS_PER_BLOCK = ROW_THREADS / 32;
 constexpr int ELEM_THREADS = 256;
+// the dequantizers: a chunk of 4 values a thread-step, DQ_UNROLL chunks a
+// thread, 256 apart, so a warp's loads and 16-byte stores are contiguous
+// (wire.DEQUANT_THREADS and DEQUANT_UNROLL on the host)
+constexpr int DQ_UNROLL = 4;
+constexpr int DQ_THREADS = 256;
+constexpr int DQ_WIDTH = 4;
+constexpr int DQ_TILE = DQ_THREADS * DQ_UNROLL;   // chunks a block
 constexpr float SCALE_FLOOR = 1e-12f;
 constexpr unsigned FULL = 0xffffffffu;
 // f32(1/127), rounded once: the int8 coefficient wire's step (ref.INV127)
@@ -190,18 +221,55 @@ quant_pack_kernel(const float* __restrict__ g, const float* __restrict__ u,
   if (lane == 0) scales[row] = scale;
 }
 
+// the 4 codes of chunk c (values 4c..4c+3), BITS/2 bytes at byte c*BITS/2
 template <int BITS>
-__global__ void __launch_bounds__(ELEM_THREADS)
+__device__ __forceinline__ uint32_t chunk_codes(const uint32_t* __restrict__ words,
+                                                unsigned c) {
+  if (BITS == 8) return words[c];
+  if (BITS == 4) return reinterpret_cast<const uint16_t*>(words)[c];
+  return reinterpret_cast<const uint8_t*>(words)[c];
+}
+
+template <int BITS>
+__global__ void __launch_bounds__(DQ_THREADS)
 unpack_dequant_kernel(const uint32_t* __restrict__ words, const float* __restrict__ scales,
-                      float* __restrict__ out, long long n) {
+                      float* __restrict__ out, unsigned n, unsigned vec_chunks) {
   constexpr int CPW = 32 / BITS;
+  constexpr unsigned CPR = ROW / DQ_WIDTH;   // chunks per row
   constexpr int LEVELS = (1 << (BITS - 1)) - 1;
+  constexpr uint32_t MASK = (1u << BITS) - 1u;
   // float(np.float32(1) / np.float32(levels)), rounded once
   constexpr float INV = 1.0f / (float)LEVELS;
-  const long long i = (long long)blockIdx.x * ELEM_THREADS + threadIdx.x;
-  if (i >= n) return;
-  const int code = (int)((words[i / CPW] >> ((i % CPW) * BITS)) & ((1u << BITS) - 1u)) - LEVELS;
-  out[i] = __fmul_rn((float)code, __fmul_rn(scales[i / ROW], INV));
+  const unsigned c0 = blockIdx.x * DQ_TILE + threadIdx.x;
+  uint32_t q[DQ_UNROLL];
+  float sc[DQ_UNROLL];
+#pragma unroll
+  for (int u = 0; u < DQ_UNROLL; ++u) {     // every load in flight before a store
+    const unsigned c = c0 + u * DQ_THREADS;
+    if (c < vec_chunks) {
+      q[u] = chunk_codes<BITS>(words, c);
+      sc[u] = scales[c / CPR];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < DQ_UNROLL; ++u) {
+    const unsigned c = c0 + u * DQ_THREADS;
+    if (c < vec_chunks) {
+      const float s = __fmul_rn(sc[u], INV);
+      float v[DQ_WIDTH];
+#pragma unroll
+      for (int j = 0; j < DQ_WIDTH; ++j)
+        v[j] = __fmul_rn((float)((int)((q[u] >> (j * BITS)) & MASK) - LEVELS), s);
+      __stcs(reinterpret_cast<float4*>(out) + c, make_float4(v[0], v[1], v[2], v[3]));
+    } else if (c * DQ_WIDTH < n) {          // the ragged tail, or an unaligned out
+      const float s = __fmul_rn(scales[c / CPR], INV);
+      const unsigned end = min(c * DQ_WIDTH + DQ_WIDTH, n);
+      for (unsigned i = c * DQ_WIDTH; i < end; ++i) {
+        const int code = (int)((words[i / CPW] >> ((i % CPW) * BITS)) & MASK) - LEVELS;
+        out[i] = __fmul_rn((float)code, s);
+      }
+    }
+  }
 }
 
 __global__ void __launch_bounds__(ROW_THREADS)
@@ -236,14 +304,70 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 __device__ __forceinline__ void store(__half* p, float x) { *p = __float2half_rn(x); }
 
+// two 16-bit values in one word, a at the lower address
+__device__ __forceinline__ uint32_t pair(__nv_bfloat16 a, __nv_bfloat16 b) {
+  return (uint32_t)__bfloat16_as_ushort(a) | ((uint32_t)__bfloat16_as_ushort(b) << 16);
+}
+__device__ __forceinline__ uint32_t pair(__half a, __half b) {
+  return (uint32_t)__half_as_ushort(a) | ((uint32_t)__half_as_ushort(b) << 16);
+}
+
+// 4 consecutive values to p, aligned to their size, in one streaming store,
+// each value rounded once from f32 as store() rounds it
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
 template <typename T>
-__global__ void __launch_bounds__(ELEM_THREADS)
+__device__ __forceinline__ void store4(T* p, const float* v) {
+  T h[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) store(h + j, v[j]);
+  __stcs(reinterpret_cast<uint2*>(p), make_uint2(pair(h[0], h[1]), pair(h[2], h[3])));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(DQ_THREADS)
 block_dequant_kernel(const int8_t* __restrict__ codes, const float* __restrict__ scales,
-                     T* __restrict__ out, long long n, int block, int bits) {
-  const long long i = (long long)blockIdx.x * ELEM_THREADS + threadIdx.x;
-  if (i >= n) return;
+                     T* __restrict__ out, unsigned n, unsigned block, int bits,
+                     unsigned vec_chunks) {
+  // float(np.float32(1) / np.float32(levels)), rounded once, once per thread
   const float inv = __fdiv_rn(1.0f, (float)((1 << (bits - 1)) - 1));
-  store(out + i, __fmul_rn((float)codes[i], __fmul_rn(scales[i / block], inv)));
+  const unsigned cpr = block / DQ_WIDTH;     // chunks per row on the vector path
+  const unsigned c0 = blockIdx.x * DQ_TILE + threadIdx.x;
+  int q[DQ_UNROLL];
+  float sc[DQ_UNROLL];
+#pragma unroll
+  for (int u = 0; u < DQ_UNROLL; ++u) {     // every load in flight before a store
+    const unsigned c = c0 + u * DQ_THREADS;
+    if (c < vec_chunks) {
+      q[u] = reinterpret_cast<const int*>(codes)[c];
+      sc[u] = scales[c / cpr];                // block % 4 == 0: one row a chunk
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < DQ_UNROLL; ++u) {
+    const unsigned c = c0 + u * DQ_THREADS;
+    if (c < vec_chunks) {
+      const float s = __fmul_rn(sc[u], inv);
+      float v[DQ_WIDTH];
+#pragma unroll
+      for (int j = 0; j < DQ_WIDTH; ++j) v[j] = __fmul_rn((float)(int8_t)(q[u] >> (8 * j)), s);
+      store4(out + c * DQ_WIDTH, v);
+    } else if (c * DQ_WIDTH < n) {
+      // any block, the ragged tail, unaligned operands: value by value, the
+      // row found once and stepped where the chunk crosses into the next
+      const unsigned i0 = c * DQ_WIDTH, end = min(i0 + DQ_WIDTH, n);
+      unsigned row = i0 / block, off = i0 - row * block;
+      float s = __fmul_rn(scales[row], inv);
+      for (unsigned i = i0; i < end; ++i, ++off) {
+        if (off == block) {
+          off = 0;
+          s = __fmul_rn(scales[++row], inv);
+        }
+        store(out + i, __fmul_rn((float)codes[i], s));
+      }
+    }
+  }
 }
 
 __global__ void __launch_bounds__(ELEM_THREADS)
@@ -303,17 +427,26 @@ extern "C" int wire_quant_pack_f32(const float* g, const float* u, uint32_t* wor
   return (int)cudaGetLastError();
 }
 
+// the dequantizers' plan (wire.dequant_plan): n < 2^31 outputs in chunks of 4
+// values, the first vec_chunks on the vector path, grid blocks of DQ_TILE chunks
+inline bool dequant_plan_ok(long long n, long long vec_chunks, int grid) {
+  return n >= 1 && n <= 0x7fffffffLL && vec_chunks >= 0 && vec_chunks <= n / DQ_WIDTH &&
+         grid >= 1 && (unsigned)grid == grid_for((n + DQ_WIDTH - 1) / DQ_WIDTH, DQ_TILE);
+}
+
 // words (n_p*bits/32,) u32, scales (n_p/512,) f32 -> out (n,) f32, n <= n_p
 extern "C" int wire_unpack_dequant_f32(const uint32_t* words, const float* scales,
-                                        float* out, long long n, int bits, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  const unsigned grid = grid_for(n, ELEM_THREADS);
+                                        float* out, long long n, int bits,
+                                        long long vec_chunks, int grid, void* stream) {
+  if (!dequant_plan_ok(n, vec_chunks, grid) || (bits != 2 && bits != 4 && bits != 8) ||
+      (vec_chunks > 0 && !aligned16(out)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned nn = (unsigned)n, vc = (unsigned)vec_chunks;
   switch (bits) {
-    case 2: unpack_dequant_kernel<2><<<grid, ELEM_THREADS, 0, s>>>(words, scales, out, n); break;
-    case 4: unpack_dequant_kernel<4><<<grid, ELEM_THREADS, 0, s>>>(words, scales, out, n); break;
-    case 8: unpack_dequant_kernel<8><<<grid, ELEM_THREADS, 0, s>>>(words, scales, out, n); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 2: unpack_dequant_kernel<2><<<grid, DQ_THREADS, 0, s>>>(words, scales, out, nn, vc); break;
+    case 4: unpack_dequant_kernel<4><<<grid, DQ_THREADS, 0, s>>>(words, scales, out, nn, vc); break;
+    default: unpack_dequant_kernel<8><<<grid, DQ_THREADS, 0, s>>>(words, scales, out, nn, vc); break;
   }
   return (int)cudaGetLastError();
 }
@@ -332,20 +465,24 @@ extern "C" int quant_block_quant_f32(const float* g, const float* u, int8_t* cod
 }
 
 // codes (n_p,) int8, scales (n_p/block,) f32 -> out (n,), n <= n_p, of type
-// out_kind: 0 f32, 1 bf16, 2 f16
+// out_kind: 0 f32, 1 bf16, 2 f16; the vector path needs block % 4 == 0, codes
+// 4-byte and out 16-byte aligned
 extern "C" int quant_block_dequant(const int8_t* codes, const float* scales, void* out,
                                    long long n, int block, int bits, int out_kind,
-                                   void* stream) {
-  if (n < 1 || block < 1 || bits < 2 || bits > 8) return (int)cudaErrorInvalidValue;
-  const unsigned grid = grid_for(n, ELEM_THREADS);
+                                   long long vec_chunks, int grid, void* stream) {
+  if (!dequant_plan_ok(n, vec_chunks, grid) || block < 1 || bits < 2 || bits > 8 ||
+      (vec_chunks > 0 && !(block % DQ_WIDTH == 0 && ((uintptr_t)codes & 3u) == 0 &&
+                           aligned16(out))))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned nn = (unsigned)n, vc = (unsigned)vec_chunks, bl = (unsigned)block;
   switch (out_kind) {
-    case 0: block_dequant_kernel<<<grid, ELEM_THREADS, 0, s>>>(
-        codes, scales, static_cast<float*>(out), n, block, bits); break;
-    case 1: block_dequant_kernel<<<grid, ELEM_THREADS, 0, s>>>(
-        codes, scales, static_cast<__nv_bfloat16*>(out), n, block, bits); break;
-    case 2: block_dequant_kernel<<<grid, ELEM_THREADS, 0, s>>>(
-        codes, scales, static_cast<__half*>(out), n, block, bits); break;
+    case 0: block_dequant_kernel<<<grid, DQ_THREADS, 0, s>>>(
+        codes, scales, static_cast<float*>(out), nn, bl, bits, vc); break;
+    case 1: block_dequant_kernel<<<grid, DQ_THREADS, 0, s>>>(
+        codes, scales, static_cast<__nv_bfloat16*>(out), nn, bl, bits, vc); break;
+    case 2: block_dequant_kernel<<<grid, DQ_THREADS, 0, s>>>(
+        codes, scales, static_cast<__half*>(out), nn, bl, bits, vc); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -58,7 +58,8 @@ def check_operand(name: str, x: torch.Tensor, ndim: int, device,
                   dtype: torch.dtype = torch.float32) -> None:
     """Raise unless ``x`` is what the CUDA kernels take: a contiguous
     ``dtype`` tensor of rank ``ndim`` on ``device``."""
-    if x.device != device or x.device.type != "cuda":
+    # is_cuda, not device.type: a wrapper's host time is on every launch's path
+    if x.device != device or not x.is_cuda:
         raise ValueError(f"{name} must lie on {device} (a CUDA device), got {x.device}")
     if x.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {x.dtype}")

@@ -11,7 +11,8 @@ x - floor(x))`` clipped to ``[-levels, levels]`` against operand uniforms
 ``ref.block_quant_ref`` and ``ref.block_dequant_ref`` bit for bit.  The
 quantizer wire (``ops.block_quant_wire``) runs them for the widths that
 ``quant_pack``/``unpack_dequant`` do not take.  Both are single passes
-bounded by HBM bandwidth.
+bounded by HBM bandwidth.  ``block_dequant`` walks its output in chunks of
+4 codes (one 4-byte load) by the host's plan, ``wire.dequant_plan``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from . import _build
 from .gradestc_encode import check_operand
 from .ref import quant_levels
+from .wire import dequant_plan
 
 __all__ = ["block_quant", "block_dequant", "quant_levels", "OUT_DTYPES"]
 
@@ -63,20 +65,25 @@ def block_dequant(codes: torch.Tensor, scales: torch.Tensor, n: int, block: int 
                   bits: int = 8, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """codes int8 (n_p,) and scales f32 (n_p/block,) on one CUDA device ->
     the first n values of ``code * (scale * f32(1/levels))`` in
-    ``out_dtype`` (f32, bf16 or f16; rounded once from f32)."""
+    ``out_dtype`` (f32, bf16 or f16; rounded once from f32); ``n_p < 2**31``."""
     _check(block, bits)
-    check_operand("codes", codes, 1, codes.device, torch.int8)
-    check_operand("scales", scales, 1, codes.device)
-    if out_dtype not in OUT_DTYPES:
+    dev = codes.device
+    check_operand("codes", codes, 1, dev, torch.int8)
+    check_operand("scales", scales, 1, dev)
+    kind = OUT_DTYPES.get(out_dtype)
+    if kind is None:
         raise TypeError(f"block_dequant writes {list(OUT_DTYPES)}, not {out_dtype}")
     n_p = scales.shape[0] * block
     if codes.shape[0] != n_p or not 0 <= n_p - n < block:
         raise ValueError(f"codes {tuple(codes.shape)} and scales {tuple(scales.shape)} "
                          f"do not hold {n} values in blocks of {block}")
-    out = torch.empty((n,), dtype=out_dtype, device=codes.device)
+    if n_p >= 2 ** 31:
+        raise ValueError(f"the dequantizer takes fewer than 2**31 codes, got {n_p}")
+    out = torch.empty((n,), dtype=out_dtype, device=dev)
     if n:
+        c, o = codes.data_ptr(), out.data_ptr()
+        plan = dequant_plan(n, block, c % 4 == 0 and o % 16 == 0)
         with _build.device(codes):
-            _build.launch("block_dequant", "quant_block_dequant", codes.data_ptr(),
-                          scales.data_ptr(), out.data_ptr(), n, block, bits,
-                          OUT_DTYPES[out_dtype], _build.stream(codes))
+            _build.launch("block_dequant", "quant_block_dequant", c, scales.data_ptr(), o, n,
+                          block, bits, kind, plan.vec_chunks, plan.grid, _build.stream(codes))
     return out

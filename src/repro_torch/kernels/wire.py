@@ -18,7 +18,11 @@ The quantizer wire (``csrc/quant_wire.cu``), on flat f32 vectors:
 with ``use_pallas``).  Their plain versions are ``ref.sign_pack_ref``,
 ``ref.sign_unpack_ref``, ``ref.quant_pack_ref`` and
 ``ref.unpack_dequant_ref``; each kernel equals its plain version bit for bit.
-All four are single passes bounded by HBM bandwidth.
+All four are single passes bounded by HBM bandwidth.  The dequantizers
+(``unpack_dequant`` here, ``quant.block_dequant``) walk their output in
+chunks of 4 values, by a launch plan made here on the host
+(:func:`dequant_plan`) and passed to the kernel, so that the CPU tests can
+hold it.
 
 ``coeff_dequant`` (also in ``csrc/quant_wire.cu``) replaces
 ``wire.py::coeff_dequant_pallas``: ``codes * (scale * INV127)`` back to a
@@ -31,7 +35,8 @@ uint32 values, held here as the bit patterns of an int32 tensor.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -39,10 +44,42 @@ from . import _build, ref
 from .gradestc_encode import check_operand
 
 __all__ = ["coeff_quant", "coeff_dequant", "sign_pack", "sign_unpack", "quant_pack",
-           "unpack_dequant", "QUANT_BITS"]
+           "unpack_dequant", "QUANT_BITS", "DequantPlan", "dequant_plan"]
 
 #: bit widths whose codes tile a 512-value row in whole words
 QUANT_BITS = (2, 4, 8)
+#: the dequantizers' chunk of values, threads per block and chunks per thread
+DEQUANT_WIDTH = 4
+DEQUANT_THREADS = 256
+DEQUANT_UNROLL = 4
+
+
+class DequantPlan(NamedTuple):
+    """How a dequantizer kernel walks its n outputs.  Chunk ``c`` holds
+    values ``[4c, min(4c + 4, n))``; chunks below ``vec_chunks`` take the
+    vector path (one load of their 4 codes, one scale, of row ``c // (block
+    // 4)``, one 16-byte store), the rest the scalar path, value by value
+    with the row ``i // block``.  Block ``b`` of the ``grid`` takes chunks
+    ``b * tile + t + DEQUANT_THREADS * u`` for thread ``t`` and ``u <
+    DEQUANT_UNROLL``, ``tile = DEQUANT_THREADS * DEQUANT_UNROLL``, so a
+    warp's loads and stores are contiguous."""
+    chunks: int
+    vec_chunks: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)
+def dequant_plan(n: int, block: int, aligned: bool) -> DequantPlan:
+    """The plan of ``unpack_dequant`` (``block`` 512) and
+    ``quant.block_dequant`` for n outputs: the vector path takes every whole
+    chunk when the operands are ``aligned`` for its loads and store (the
+    codes to 4 bytes, the output to 16) and no chunk straddles two rows
+    (``block % 4 == 0``); the ragged tail and any other case take the scalar
+    path."""
+    chunks = -(-n // DEQUANT_WIDTH)
+    vec = aligned and block % DEQUANT_WIDTH == 0
+    return DequantPlan(chunks, n // DEQUANT_WIDTH if vec else 0,
+                       -(-chunks // (DEQUANT_THREADS * DEQUANT_UNROLL)))
 
 
 def _rows(n: int) -> int:
@@ -143,18 +180,24 @@ def quant_pack(g: torch.Tensor, u: torch.Tensor, bits: int = 8
 def unpack_dequant(words: torch.Tensor, scales: torch.Tensor, n: int, bits: int = 8
                    ) -> torch.Tensor:
     """words int32 (n_p*bits/32,) and scales f32 (n_p/512,) on one CUDA
-    device -> the first n values, ``(code - levels) * (scale * f32(1/levels))``."""
+    device -> the first n values, ``(code - levels) * (scale * f32(1/levels))``;
+    ``n_p < 2**31``."""
     _check_bits(bits)
-    check_operand("words", words, 1, words.device, torch.int32)
-    check_operand("scales", scales, 1, words.device)
-    rows = scales.shape[0]
-    n_p = rows * ref.WIRE_BLOCK
+    dev = words.device
+    check_operand("words", words, 1, dev, torch.int32)
+    check_operand("scales", scales, 1, dev)
+    n_p = scales.shape[0] * ref.WIRE_BLOCK
     if words.shape[0] != n_p * bits // 32 or not 0 <= n_p - n < ref.WIRE_BLOCK:
         raise ValueError(f"words {tuple(words.shape)} and scales {tuple(scales.shape)} "
                          f"do not hold {n} {bits}-bit codes")
-    out = torch.empty((n,), dtype=torch.float32, device=words.device)
+    if n_p >= 2 ** 31:
+        raise ValueError(f"the dequantizer takes fewer than 2**31 codes, got {n_p}")
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
     if n:
+        o = out.data_ptr()
+        plan = dequant_plan(n, ref.WIRE_BLOCK, o % 16 == 0)
         with _build.device(words):
             _build.launch("unpack_dequant", "wire_unpack_dequant_f32", words.data_ptr(),
-                          scales.data_ptr(), out.data_ptr(), n, bits, _build.stream(words))
+                          scales.data_ptr(), o, n, bits, plan.vec_chunks, plan.grid,
+                          _build.stream(words))
     return out

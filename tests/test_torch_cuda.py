@@ -12,7 +12,10 @@ encode_quant's codes equal except by one where A/scale*127 sits within
 quantizer wire kernels (sign_pack, sign_unpack, quant_pack, unpack_dequant)
 and the block quantizer (block_quant, block_dequant, also through the wire
 route of the other bit widths) bit for bit, at every flat group size of the
-TinyLlama-width slice and at ragged sizes; coeff_dequant bit for bit;
+TinyLlama-width slice and at ragged sizes; the two dequantizers also at n
+from 1 to 17, 511, 513, 70,001 and 1,048,576, every width (block_dequant
+at blocks 512, 256, 96, 100 and 30 and in f32, bf16 and f16), with operands
+on and off 16-byte alignment; coeff_dequant bit for bit;
 flash_attention within rtol = atol = 1e-4 in f32 and 5e-2 with bf16 inputs
 (the JAX tests' tolerances), also where its plan splits a query tile's
 keys (at a one-tile chunk, Sq != Skv, rows that see no key), and an eval
@@ -352,6 +355,63 @@ def test_cuda_block_quant_bit_exact(cuda, n, bits, block):
     cc, cs, _ = ops.block_quantize(g.cpu(), prng.PRNGKey(n, "cpu"), block=block, bits=bits)
     assert torch.equal(cc, codes.cpu()) and _same_bits(cs, scales.cpu())
     assert _same_bits(ops.block_dequantize(codes, scales, pad, block=block, bits=bits), out)
+
+
+#: the dequantizers' sizes: every chunk remainder, both sides of a row, a
+#: ragged size and one group size of the path
+DEQUANT_SIZES = list(range(1, 18)) + [511, 513, 70_001, 1_048_576]
+
+
+def _offset(x, misaligned):
+    """``x``, or a contiguous copy one element off 16-byte alignment."""
+    if not misaligned:
+        return x
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:].copy_(x)
+    return buf[1:]
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("n", DEQUANT_SIZES)
+def test_cuda_unpack_dequant_bit_exact(cuda, n, bits, misaligned):
+    """Every code of every width, on the vector path and (misaligned, the
+    ragged tail) the scalar one."""
+    rng = np.random.default_rng(n + bits)
+    n_p = n + (-n) % 512
+    levels = int(tref.quant_levels(bits))
+    biased = torch.from_numpy(rng.integers(0, 2 * levels + 1, n_p))
+    scales = torch.from_numpy(rng.uniform(1e-6, 1e-2, n_p // 512).astype(np.float32))
+    words = tref.pack_codes_ref(biased, bits)
+    want = tref.unpack_dequant_ref(words, scales, n_p, 512, bits)[:n]
+    w32 = _offset(words.to(torch.int32).to(cuda), misaligned)
+    s = _offset(scales.to(cuda), misaligned)
+    before = ops.launch_counts()["unpack_dequant"]
+    out = wire.unpack_dequant(w32, s, n, bits)
+    assert ops.launch_counts()["unpack_dequant"] == before + 1
+    assert _same_bits(out.cpu(), want)
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("block", [512, 256, 96, 100, 30])
+@pytest.mark.parametrize("n", DEQUANT_SIZES)
+def test_cuda_block_dequant_bit_exact(cuda, n, block, misaligned):
+    """bits 2 to 8 in f32, bf16 and f16 (each rounded once from the f32
+    value), blocks of whole chunks or not (30), aligned or not."""
+    n_p = n + (-n) % block
+    for bits in range(2, 9):
+        rng = np.random.default_rng(n + block + bits)
+        levels = int(tref.quant_levels(bits))
+        codes = torch.from_numpy(rng.integers(-levels, levels + 1, n_p).astype(np.int8))
+        scales = torch.from_numpy(rng.uniform(1e-6, 1e-2, n_p // block).astype(np.float32))
+        want = tref.block_dequant_ref(codes, scales, block, bits)[:n]
+        c, s = _offset(codes.to(cuda), misaligned), _offset(scales.to(cuda), misaligned)
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
+            before = ops.launch_counts()["block_dequant"]
+            out = quant.block_dequant(c, s, n, block, bits, dt)
+            assert ops.launch_counts()["block_dequant"] == before + 1
+            assert out.dtype == dt
+            assert torch.equal(out.cpu().view(torch.int8), want.to(dt).view(torch.int8))
 
 
 @pytest.mark.parametrize("n,bits,block", [(70_001, 6, 512), (70_001, 3, 256), (513, 7, 512),
