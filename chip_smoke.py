@@ -19,7 +19,13 @@ script exits non-zero:
    exact M = 0 cases; the quantizer wire (sign_pack, sign_unpack,
    quant_pack, unpack_dequant) bit for bit at each flat group size and a
    ragged one (bits 8, 2 and 4; unpack_dequant also on operands one element
-   off 16-byte alignment); block_quant and block_dequant bit for bit at
+   off 16-byte alignment; the sign wire also with -0.0, +-inf and
+   subnormals, from a g and into an output off alignment, and sign_pack's
+   scale against ``ref.mean_abs_ref``); the sign wire through
+   ``ops.sign_wire``/``ops.sign_unwire`` back-to-back with its host time
+   per call and its device time by CUDA kernel (sign_pack's and the
+   scale's finish), with their launches, at each flat group size and per
+   client-round; block_quant and block_dequant bit for bit at
    each flat group size and the ragged one, at bits 2 to 8 with 512-value
    blocks and bits 6 with 256, 96, 100 and 30 (block_dequant also in bf16
    and f16 and off alignment), and the 6-bit wire route against its oracle;
@@ -602,6 +608,18 @@ def log_gemm_totals(label, tot, names=("encode", "encode_quant")):
                        f"{row['b2b_library_ms']:.4f}), bound {row['bound_ms']:.4f}")
 
 
+def sign_specials(g):
+    """A copy of ``g`` with -0.0, +-inf and subnormals of both signs."""
+    g = g.clone()
+    g[3::11] = -0.0
+    sub = torch.full_like(g[5::13], 1e-40)
+    sub[1::2] = -1e-40
+    g[5::13] = sub
+    if g.numel() >= 100:
+        g[97], g[-2] = float("inf"), float("-inf")
+    return g
+
+
 def offset_copy(x):
     """A contiguous copy of ``x`` one element into a fresh buffer: not
     16-byte aligned, so the kernels take their scalar paths."""
@@ -643,22 +661,34 @@ def phase_quant_kernels(flat_counts, ragged: int = 70_001):
         u = prng.uniform(key, (n_p,))
         gp = F.pad(g, (0, n_p - n))
 
-        def plain_sign_pack():
-            return (ref.pack_codes_ref((g < 0).long(), 1),
-                    ref.pairwise_sum(gp.abs().reshape(rows, 512)))
+        def plain_sign_pack(g=g):
+            a = F.pad(g.abs(), (0, n_p - n)).reshape(rows, 512)
+            rowsums = ref.pairwise_sum(a)
+            return (ref.pack_codes_ref((g < 0).long(), 1), rowsums,
+                    ref.pairwise_sum(rowsums) * ref.recip32(n))
 
-        words, rowsums = wire.sign_pack(g)
-        rw, rrows = plain_sign_pack()
-        scale = ops.sign_wire(g)[1]
-        out = wire.sign_unpack(words, scale, n)
-        rout = ref.sign_unpack_ref(rw, scale, n)
-        ok = {"sign_pack": torch.equal(u32(words), rw) and same(rowsums, rrows)
-              and same(scale, ref.mean_abs_ref(g)),
-              "sign_unpack": same(out, rout)}
-        err = {"sign_pack": max(float((u32(words) - rw).abs().max()),
-                                float((rowsums - rrows).abs().max())),
-               "sign_unpack": float((out - rout).abs().max()),
-               "quant_pack": 0.0, "unpack_dequant": 0.0}
+        err = {"sign_pack": 0.0, "sign_unpack": 0.0, "quant_pack": 0.0, "unpack_dequant": 0.0}
+        ok = {}
+        # the sign wire on g, and on g with -0.0, +-inf and subnormals (then
+        # the scale is inf); sign_pack also from a g one float off 16-byte
+        # alignment and sign_unpack into such an output (their scalar paths)
+        for label, gs in (("", g), ("/specials", sign_specials(g))):
+            words, rowsums, scale = wire.sign_pack(gs)
+            rw, rrows, rscale = plain_sign_pack(gs)
+            mw, mrows, mscale = wire.sign_pack(offset_copy(gs))
+            out = wire.sign_unpack(words, scale, n)
+            mout = wire.sign_unpack(words, scale, n, out=offset_copy(torch.zeros_like(gs)))
+            rout = ref.sign_unpack_ref(rw, rscale, n)
+            ok["sign_pack" + label] = (
+                torch.equal(u32(words), rw) and same(rowsums, rrows) and same(scale, rscale)
+                and same(scale, ref.mean_abs_ref(gs)) and same(ops.sign_wire(gs)[1], rscale)
+                and torch.equal(mw, words) and same(mrows, rowsums) and same(mscale, scale))
+            ok["sign_unpack" + label] = same(out, rout) and same(mout, rout)
+            if not label:
+                err["sign_pack"] = max(float((u32(words) - rw).abs().max()),
+                                       float((rowsums - rrows).abs().max()),
+                                       float((scale - rscale).abs()))
+                err["sign_unpack"] = float((out - rout).abs().max())
         for bits in (8, 2, 4):
             qw, qs = wire.quant_pack(g, u, bits)
             rqw, rqs = ref.quant_pack_ref(gp, u, 512, bits)
@@ -678,6 +708,8 @@ def phase_quant_kernels(flat_counts, ragged: int = 70_001):
                                  f"n={n}: {ok}")
         qw, qs = wire.quant_pack(g, u, 8)
         rqw = ref.quant_pack_ref(gp, u, 512, 8)[0]
+        words, _, scale = wire.sign_pack(g)
+        rw = plain_sign_pack()[0]
         t = {"sign_pack": (time_ms(lambda: wire.sign_pack(g)), time_ms(plain_sign_pack)),
              "sign_unpack": (time_ms(lambda: wire.sign_unpack(words, scale, n)),
                              time_ms(lambda: ref.sign_unpack_ref(rw, scale, n))),
@@ -689,7 +721,7 @@ def phase_quant_kernels(flat_counts, ragged: int = 70_001):
         # bytes: inputs read once, outputs written once (4-byte words, f32
         # scales); operations: a few FP32 ops per value, far below the bytes
         nw1, nw8 = -(-n // 32), n_p // 4
-        b = {"sign_pack": bound_ms(4 * n + 4 * nw1 + 4 * rows, 2 * n),
+        b = {"sign_pack": bound_ms(4 * n + 4 * nw1 + 4 * rows + 4, 2 * n),
              "sign_unpack": bound_ms(4 * nw1 + 4 + 4 * n, 2 * n),
              "quant_pack": bound_ms(4 * n + 4 * n_p + 4 * nw8 + 4 * rows, 8 * n_p),
              "unpack_dequant": bound_ms(4 * nw8 + 4 * rows + 4 * n, 3 * n)}
@@ -709,7 +741,61 @@ def phase_quant_kernels(flat_counts, ragged: int = 70_001):
             row["ms"] += w * ms
             row["plain_ms"] += w * plain
             row["bound_ms"] += w * bms
+    for name, row in phase_sign_wire(flat_counts).items():
+        tot[name].update(row)
     return tot, bound_by, uniform_ms
+
+
+def phase_sign_wire(flat_counts):
+    """The sign wire as the signsgd codec calls it, at each flat group size:
+    ``ops.sign_wire`` (sign_pack and the mean-|g| scale's finish) and
+    ``ops.sign_unwire`` (sign_unpack), back-to-back with their host time
+    per call (``log_b2b_alone``) beside their bound, and their device time
+    by CUDA kernel with each kernel's launches per call
+    (``profile_device_us``), each summed over one client's round
+    (flat_counts[n] calls).  It uses only the dispatchers, so it times a
+    parent tree the same way.  Returns {"sign_pack": row, "sign_unpack":
+    row} with b2b_ms, host_us and device_us per client-round."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = {"sign_pack": {}, "sign_unpack": {}}
+    dev, kernels = collections.defaultdict(float), collections.defaultdict(float)
+    for n in sorted(flat_counts):
+        w = flat_counts[n]
+        g = torch.randn(n, device="cuda", generator=gen) * 1e-3
+        g[::7] = 0.0
+        words, scale = ops.sign_wire(g)
+        nw, nrows = -(-n // 32), -(-n // 512)
+        # bytes: g read, words, row sums and the scale written; back: words
+        # and the scale read, n f32 written
+        for name, fn, nbytes in (
+                ("sign_pack", lambda: ops.sign_wire(g), 4 * n + 4 * nw + 4 * nrows + 4),
+                ("sign_unpack", lambda: ops.sign_unwire(words, scale, n), 4 * nw + 4 + 4 * n)):
+            log_b2b_alone(f"{name} n={n} (x{w} a client-round)", fn, w, rows[name],
+                          bound_ms(nbytes, 2 * n)[0])
+            counts = {}
+            for kernel, us in profile_device_us(fn, launches=counts).items():
+                log("profile", f"{name} n={n}: {kernel} {us:.2f} us/call, "
+                               f"{counts[kernel]:g} launches/call")
+                dev[name, kernel] += w * us
+                kernels[name, kernel] += w * counts[kernel]
+    for name, row in rows.items():
+        mine = {k: us for (nm, k), us in dev.items() if nm == name}
+        row["device_us"] = sum(mine.values())
+        log("kernels", f"tinyllama {name} device us per client-round {row['device_us']:.1f}: "
+            + ", ".join(f"{k} {us:.1f} ({us / row['device_us']:.1%}, "
+                        f"{kernels[name, k]:g} launches)" for k, us in mine.items()))
+    return rows
+
+
+def flat_group_counts(arch):
+    """{flat group size: groups of that size} of ``arch``'s parameters."""
+    from repro_torch.core.policy import make_policy
+    from repro_torch.models import model
+
+    policy = make_policy(model.param_group_shapes(arch), min_params=4096)
+    return collections.Counter(plan.raw_scalars for plan in policy.plans.values())
 
 
 def phase_block_quant_kernels(flat_counts, ragged: int = 70_001):
@@ -1014,9 +1100,10 @@ def phase_profile(method: str, arch, kw) -> None:
             log("profile", f"{kind:6s} {dev(e) / 1e3:9.2f} ms {e.count:6d} calls  {e.key[:80]}")
 
 
-def profile_device_us(fn, reps: int = 10):
+def profile_device_us(fn, reps: int = 10, launches=None):
     """{CUDA kernel name: device us per call of ``fn``} (torch.profiler over
-    ``reps`` calls after one warm-up)."""
+    ``reps`` calls after one warm-up); ``launches``, a dict, also gets each
+    kernel's launches per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1032,7 +1119,10 @@ def profile_device_us(fn, reps: int = 10):
         if e.device_type != DeviceType.CUDA or us <= 0:
             continue
         kernel = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
-        out[kernel.split("<")[0].split("(")[0]] += us / reps
+        kernel = kernel.split("<")[0].split("(")[0]
+        out[kernel] += us / reps
+        if launches is not None:
+            launches[kernel] = launches.get(kernel, 0.0) + e.count / reps
     return out
 
 
@@ -1145,7 +1235,7 @@ def main() -> int:
                                        for p in gemma_policy.plans.values() if p.compress)
     phase_encode_gemma(sorted(gemma_counts), gemma_counts)
     log_chain_order([(2, 300, 260, 1), (1, 517, 1000, 17)])
-    flat_counts = collections.Counter(plan.raw_scalars for plan in policy.plans.values())
+    flat_counts = flat_group_counts(arch)
     qtot, qbound_by, uniform_ms = phase_quant_kernels(flat_counts)
     tot.update(qtot)
     bound_by.update(qbound_by)
@@ -1164,7 +1254,7 @@ def main() -> int:
         f"{k} {tot[k]['ms']:.4f} ms (plain {tot[k]['plain_ms']:.4f}, bound "
         f"{tot[k]['bound_ms']:.4f})" for k in (*qtot, *btot))
         + f"; uniform draws {uniform_ms:.4f} ms")
-    for k in ("unpack_dequant", "block_dequant"):
+    for k in ("sign_pack", "sign_unpack", "unpack_dequant", "block_dequant"):
         log("kernels", f"tinyllama {k} per client-round: kernel {tot[k]['ms']:.4f} ms "
                        f"(back-to-back {tot[k]['b2b_ms']:.4f}, host {tot[k]['host_us']:.1f} us), "
                        f"bound {tot[k]['bound_ms']:.4f}")
@@ -1313,7 +1403,7 @@ def main() -> int:
         }
         if run is None:
             row["path"] = "kernel phase only"
-        for key in ("b2b_ms", "b2b_library_ms", "host_us", "at"):
+        for key in ("b2b_ms", "b2b_library_ms", "host_us", "device_us", "at"):
             if key in t:
                 row[key] = t[key]
         if name == "flash_attention":

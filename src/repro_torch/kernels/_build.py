@@ -47,8 +47,8 @@ _SIGNATURES = {
     "gradestc_coeff_quant_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "gradestc_encode_quant_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gradestc_decode_wire_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "wire_sign_pack_f32": [_P, _P, _P, _L, _P],
-    "wire_sign_unpack_f32": [_P, _P, _P, _L, _P],
+    "wire_sign_pack_f32": [_P, _P, _P, _P, _L, _F, _P],
+    "wire_sign_unpack_f32": [_P, _P, _P, _L, _L, _I, _P],
     "wire_quant_pack_f32": [_P, _P, _P, _P, _L, _I, _P],
     "wire_unpack_dequant_f32": [_P, _P, _P, _L, _I, _L, _I, _P],
     "quant_block_quant_f32": [_P, _P, _P, _P, _L, _I, _I, _P],

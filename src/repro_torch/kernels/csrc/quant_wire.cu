@@ -5,8 +5,10 @@
 // one library).
 //
 // sign_pack:      g (n,) f32 -> words (ceil(n/32),) u32, bit i = (g_i < 0),
-//                 and rowsums (ceil(n/512),) f32, the pairwise-tree sum of
-//                 |g| over each 512-value row (zero padded)
+//                 rowsums (ceil(n/512),) f32, the pairwise-tree sum of |g|
+//                 over each 512-value row (zero padded), and the mean-|g|
+//                 scale () f32, the rows' pairwise sum times f32(1/n) (a
+//                 second kernel, mean_abs_kernel, from the same entry point)
 // sign_unpack:    words, scale (a device pointer) -> (1 - 2 bit) * scale, (n,)
 // quant_pack:     g (n,) f32 zero padded to n_p = ceil(n/512)*512, u (n_p,)
 //                 uniforms -> per row scale = max(max|g|, 1e-12), codes
@@ -41,17 +43,21 @@
 // What bounds them on an H100 SXM (3.35 TB/s): all seven are single passes
 // that do a few operations per value, so HBM bandwidth.  quant_pack reads 8
 // bytes per value (g and u) and writes bits/8; sign_pack reads 4 and writes
-// 1/8; the unpackers read 1/8 or bits/8 and write 4.  block_quant reads 8 and
+// 1/8 (its finish reads 4 bytes per 512 values, from L2); the unpackers read
+// 1/8 or bits/8 and write 4.  block_quant reads 8 and
 // writes 1 (plus a scale per block); block_dequant and coeff_dequant read 1
 // and write 4 (2 for a bf16 or f16 output).
 //
 // Results must equal the plain versions (kernels/ref.py) bit for bit:
-//   * sign_pack's row sum follows ref.pairwise_sum's tree: a warp owns a row,
-//     step j loads values 32j..32j+31 (one per lane), the butterfly
-//     __shfl_xor_sync at offsets 1, 2, 4, 8, 16 is the tree's first five
-//     levels (adjacent pairs first; f32 addition is commutative, so both
-//     lanes of a pair hold the same sum), and the 16 partials are then added
-//     pairwise.  __ballot_sync(g < 0) of step j is word j of the row.
+//   * sign_pack's row sum follows ref.pairwise_sum's tree: a warp owns a row
+//     of 512 values, lane L holds values 128q + 4L .. 128q + 4L + 3 of step
+//     q (0..3); (v0 + v1) + (v2 + v3) in the thread is the tree's first two
+//     levels, the butterfly __shfl_xor_sync at offsets 1, 2, 4, 8, 16 the
+//     next five (adjacent blocks first; f32 addition is commutative, so both
+//     lanes of a pair hold the same sum), and (q0 + q1) + (q2 + q3) the last
+//     two.  The scale's finish (mean_abs_kernel) continues the same tree over
+//     the row sums, zero padded to a power of two: a row sum is >= +0.0, so
+//     each added zero is exact.
 //   * quant_pack and block_quant divide with __fdiv_rn and multiply with
 //     __fmul_rn, so nvcc cannot contract x * levels - floor(x) into an FMA
 //     (the reference rounds the product first); max|g| is exact in any order.
@@ -62,12 +68,32 @@
 // No --use_fast_math.
 //
 // Design:
-//   sign_pack: 256 threads, one warp per 512-value row, 16 coalesced loads a
-//     lane; the ragged last row loads 0.0 past n.
-//   sign_unpack, coeff_dequant: one thread per output value; the word (or
-//     scale) is read through the L1 by the threads that share it.
-//     coeff_dequant masks the ragged last 512-column block of each row by
-//     writing only the m columns that exist.
+//   sign_pack (redesigned for the H100): 256 threads, one warp per 512-value
+//     row.  A step of a warp loads 512 contiguous bytes (a float4 a lane),
+//     and a row's four are in flight at once; the sum takes 20 shuffles a
+//     row.  Word 4q + L / 8 is the OR of lanes 8j .. 8j + 7's sign nibbles,
+//     each at bit 4 (L % 8), over xor 1, 2 and 4; one more shuffle hands it
+//     to lane 4q + j, so lanes 0..15 store the row's 16 words as 64
+//     contiguous bytes.  The ragged last row and a g that is not 16-byte
+//     aligned load value by value (0.0 past n) in the same kernel; n < 2^31,
+//     so indices are 32-bit.
+//   mean_abs_kernel, the scale's finish: one block of 1024 threads, launched
+//     by sign_pack's entry point on the same stream, so no torch op runs
+//     between the kernel and the scale.  It walks the row sums in tiles of
+//     4096, 4 tiles loaded at once: a thread sums 4 (levels 1-2), its warp
+//     128 (3-7), the 32 warps' sums a tile (8-12, in one warp); the tiles'
+//     sums then meet in shared memory, adjacent pairs first, and thread 0
+//     writes sum * f32(1/n), the host's ref.recip32(n).
+//   sign_unpack (redesigned for the H100), the dequantizers' store pattern:
+//     a thread step is a chunk of 4 values, the nibble of word c / 8 at bit
+//     4 (c % 8), written by one 16-byte streaming store; lane L of a warp
+//     takes chunk base + L, a block of 256 threads 4 chunks a thread, 256
+//     apart, every load in flight before its stores; the scale is loaded
+//     once a thread.  It walks wire.dequant_plan(n, 512, out aligned); the
+//     ragged tail and an unaligned out take the scalar path.
+//   coeff_dequant: one thread per output value; the scale is read through
+//     the L1 by the threads that share it.  It masks the ragged last
+//     512-column block of each row by writing only the m columns that exist.
 //   unpack_dequant, block_dequant (redesigned for the H100): they write 4
 //     bytes per value (2 in bf16 or f16) and read 1/4 to 1, so the stores
 //     bound them.  One thread per value, each reloading its row's scale and
@@ -121,52 +147,20 @@ constexpr int DQ_UNROLL = 4;
 constexpr int DQ_THREADS = 256;
 constexpr int DQ_WIDTH = 4;
 constexpr int DQ_TILE = DQ_THREADS * DQ_UNROLL;   // chunks a block
+// the mean-|g| scale's finish: one block, tiles of 4 row sums a thread,
+// MA_UNROLL tiles loaded at once, at most 2^22 rows (n < 2^31) in 1024 tiles
+constexpr int MA_THREADS = 1024;
+constexpr int MA_TILE = 4 * MA_THREADS;
+constexpr int MA_UNROLL = 4;
+constexpr int MA_MAX_TILES = (1 << 22) / MA_TILE;
 constexpr float SCALE_FLOOR = 1e-12f;
 constexpr unsigned FULL = 0xffffffffu;
 // f32(1/127), rounded once: the int8 coefficient wire's step (ref.INV127)
 constexpr float INV127 = 0x1.020408p-7f;
 
-__global__ void __launch_bounds__(ROW_THREADS)
-sign_pack_kernel(const float* __restrict__ g, uint32_t* __restrict__ words,
-                 float* __restrict__ rowsums, long long n, int rows) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
-  if (row >= rows) return;
-  const long long base = (long long)row * ROW;
-  const long long nw = (n + 31) / 32;
-  float part[16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const long long i = base + 32 * j + lane;
-    const float v = i < n ? g[i] : 0.0f;
-    const unsigned w = __ballot_sync(FULL, v < 0.0f);
-    float a = fabsf(v);
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) a = __fadd_rn(a, __shfl_xor_sync(FULL, a, o));
-    part[j] = a;
-    const long long wi = (long long)row * 16 + j;
-    if (lane == 0 && wi < nw) words[wi] = w;
-  }
-#pragma unroll
-  for (int s = 1; s < 16; s <<= 1) {
-#pragma unroll
-    for (int j = 0; j < 16; j += 2 * s) part[j] = __fadd_rn(part[j], part[j + s]);
-  }
-  if (lane == 0) rowsums[row] = part[0];
-}
-
-__global__ void __launch_bounds__(ELEM_THREADS)
-sign_unpack_kernel(const uint32_t* __restrict__ words, const float* __restrict__ scale,
-                   float* __restrict__ out, long long n) {
-  const long long i = (long long)blockIdx.x * ELEM_THREADS + threadIdx.x;
-  if (i >= n) return;
-  const float b = (float)((words[i / 32] >> (i % 32)) & 1u);
-  out[i] = __fmul_rn(__fsub_rn(1.0f, __fmul_rn(2.0f, b)), *scale);
-}
-
 // four consecutive values from i (a multiple of 4); 0.0 past n
-__device__ __forceinline__ float4 load4(const float* __restrict__ p, long long i,
-                                        long long n, bool vec) {
+template <typename I>
+__device__ __forceinline__ float4 load4(const float* __restrict__ p, I i, I n, bool vec) {
   if (vec && i + 3 < n) return *reinterpret_cast<const float4*>(p + i);
   float4 r;
   r.x = i < n ? p[i] : 0.0f;
@@ -174,6 +168,125 @@ __device__ __forceinline__ float4 load4(const float* __restrict__ p, long long i
   r.z = i + 2 < n ? p[i + 2] : 0.0f;
   r.w = i + 3 < n ? p[i + 3] : 0.0f;
   return r;
+}
+
+// (a0 + a1) + (a2 + a3): the pairwise tree's first two levels
+__device__ __forceinline__ float sum4(float a0, float a1, float a2, float a3) {
+  return __fadd_rn(__fadd_rn(a0, a1), __fadd_rn(a2, a3));
+}
+
+// the tree's next five levels across a warp: lane L adds lane L ^ o's sum
+// (o = 1, 2, 4, 8, 16: adjacent blocks first; f32 addition commutes, so
+// both lanes of a pair hold the same bits); every lane gets the total
+__device__ __forceinline__ float warp_tree(float a) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) a = __fadd_rn(a, __shfl_xor_sync(FULL, a, o));
+  return a;
+}
+
+__global__ void __launch_bounds__(ROW_THREADS)
+sign_pack_kernel(const float* __restrict__ g, uint32_t* __restrict__ words,
+                 float* __restrict__ rowsums, unsigned n, unsigned rows, bool vec) {
+  const unsigned lane = threadIdx.x % 32;
+  const unsigned row = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
+  if (row >= rows) return;
+  // step q takes values 128q + 4L .. 128q + 4L + 3 in lane L
+  const unsigned base = row * ROW + 4 * lane;
+  float4 v[4];
+  if (vec && row * ROW + ROW <= n) {        // a whole row, g aligned: 4 loads in flight
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = *reinterpret_cast<const float4*>(g + base + 128 * q);
+  } else {                                  // the ragged last row, or g unaligned
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = load4(g, base + 128 * q, n, false);
+  }
+  float part[4];
+  uint32_t mine = 0u;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    part[q] = warp_tree(sum4(fabsf(v[q].x), fabsf(v[q].y), fabsf(v[q].z), fabsf(v[q].w)));
+    // word 4q + L / 8: lane L's 4 signs at bit 4 (L % 8), OR-ed over its 8 lanes
+    uint32_t w = ((uint32_t)(v[q].x < 0.0f) | (uint32_t)(v[q].y < 0.0f) << 1 |
+                  (uint32_t)(v[q].z < 0.0f) << 2 | (uint32_t)(v[q].w < 0.0f) << 3)
+                 << (4 * (lane % 8));
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) w |= __shfl_xor_sync(FULL, w, o);
+    // lane 4q + j keeps word 4q + j, which lanes 8j .. 8j + 7 hold
+    const uint32_t t = __shfl_sync(FULL, w, 8 * (lane % 4));
+    if (lane / 4 == q) mine = t;
+  }
+  // the row's 16 words as 64 contiguous bytes from lanes 0 .. 15
+  const unsigned wi = row * 16 + lane;
+  if (lane < 16 && wi < (n + 31) / 32) words[wi] = mine;
+  if (lane == 0) rowsums[row] = sum4(part[0], part[1], part[2], part[3]);
+}
+
+// the mean-|g| scale: the row sums' pairwise tree, zero padded to a power of
+// two (a row sum is >= +0.0, so a zero adds exactly), times f32(1/n)
+__global__ void __launch_bounds__(MA_THREADS)
+mean_abs_kernel(const float* __restrict__ rowsums, float* __restrict__ scale, unsigned rows,
+                unsigned tiles, float inv_n, bool vec) {
+  __shared__ float warp_sums[MA_UNROLL][32];
+  __shared__ float tile_sums[MA_MAX_TILES];
+  const unsigned lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (unsigned k0 = 0; k0 < tiles; k0 += MA_UNROLL) {
+    float4 v[MA_UNROLL];
+#pragma unroll
+    for (int u = 0; u < MA_UNROLL; ++u)
+      v[u] = load4(rowsums, (k0 + u) * MA_TILE + 4 * threadIdx.x, rows, vec);
+    // levels 1-7: thread t sums 4 row sums, a warp its 128 consecutive ones
+#pragma unroll
+    for (int u = 0; u < MA_UNROLL; ++u) {
+      const float a = warp_tree(sum4(v[u].x, v[u].y, v[u].z, v[u].w));
+      if (lane == 0) warp_sums[u][warp] = a;
+    }
+    __syncthreads();
+    // levels 8-12: warp u sums the 32 warps' sums of tile k0 + u
+    if (warp < MA_UNROLL) {
+      const float a = warp_tree(warp_sums[warp][lane]);
+      if (lane == 0 && k0 + warp < tiles) tile_sums[k0 + warp] = a;
+    }
+    __syncthreads();
+  }
+  // the tiles' tree, adjacent pairs first; tiles is a power of two
+  for (unsigned s = 1; s < tiles; s <<= 1) {
+    const unsigned j = 2 * s * threadIdx.x;
+    if (j + s < tiles) tile_sums[j] = __fadd_rn(tile_sums[j], tile_sums[j + s]);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *scale = __fmul_rn(tile_sums[0], inv_n);
+}
+
+// (1 - 2 bit) * scale, rounded as the plain version rounds it, so the bits
+// hold for every scale (inf and NaN too)
+__device__ __forceinline__ float sign_value(uint32_t bit, float s) {
+  return __fmul_rn(__fsub_rn(1.0f, __fmul_rn(2.0f, (float)(bit & 1u))), s);
+}
+
+__global__ void __launch_bounds__(DQ_THREADS)
+sign_unpack_kernel(const uint32_t* __restrict__ words, const float* __restrict__ scale,
+                   float* __restrict__ out, unsigned n, unsigned vec_chunks) {
+  const float s = *scale;
+  const unsigned c0 = blockIdx.x * DQ_TILE + threadIdx.x;
+  uint32_t q[DQ_UNROLL];
+#pragma unroll
+  for (int u = 0; u < DQ_UNROLL; ++u) {     // every load in flight before a store
+    const unsigned c = c0 + u * DQ_THREADS;
+    if (c < vec_chunks) q[u] = words[c / 8] >> (4 * (c % 8));   // chunk c's nibble
+  }
+#pragma unroll
+  for (int u = 0; u < DQ_UNROLL; ++u) {
+    const unsigned c = c0 + u * DQ_THREADS;
+    if (c < vec_chunks) {
+      __stcs(reinterpret_cast<float4*>(out) + c,
+             make_float4(sign_value(q[u], s), sign_value(q[u] >> 1, s),
+                         sign_value(q[u] >> 2, s), sign_value(q[u] >> 3, s)));
+    } else if (c * DQ_WIDTH < n) {          // the ragged tail, or an unaligned out
+      const unsigned end = min(c * DQ_WIDTH + DQ_WIDTH, n);
+      for (unsigned i = c * DQ_WIDTH; i < end; ++i)
+        out[i] = sign_value(words[i / 32] >> (i % 32), s);
+    }
+  }
 }
 
 template <int BITS>
@@ -388,23 +501,41 @@ inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 }  // namespace
 
-// g (n,) f32 -> words (ceil(n/32),) u32, rowsums (ceil(n/512),) f32
+// the dequantizers' and sign_unpack's plan (wire.dequant_plan): n < 2^31 outputs in chunks of 4
+// values, the first vec_chunks on the vector path, grid blocks of DQ_TILE chunks
+inline bool dequant_plan_ok(long long n, long long vec_chunks, int grid) {
+  return n >= 1 && n <= 0x7fffffffLL && vec_chunks >= 0 && vec_chunks <= n / DQ_WIDTH &&
+         grid >= 1 && (unsigned)grid == grid_for((n + DQ_WIDTH - 1) / DQ_WIDTH, DQ_TILE);
+}
+
+// g (n,) f32, n < 2^31 -> words (ceil(n/32),) u32, rowsums (ceil(n/512),) f32 and
+// scale () f32, the rows' pairwise sum times inv_n = f32(1/n) (ref.recip32(n)):
+// sign_pack_kernel, then mean_abs_kernel on the same stream
 extern "C" int wire_sign_pack_f32(const float* g, uint32_t* words, float* rowsums,
-                                   long long n, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  const long long rows = (n + ROW - 1) / ROW;
-  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  sign_pack_kernel<<<grid_for(rows, ROWS_PER_BLOCK), ROW_THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(g, words, rowsums, n, (int)rows);
+                                   float* scale, long long n, float inv_n, void* stream) {
+  if (n < 1 || n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const unsigned nn = (unsigned)n, rows = (nn + ROW - 1) / ROW;
+  unsigned padded = MA_TILE;                // the tree's width, a power of two
+  while (padded < rows) padded <<= 1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  sign_pack_kernel<<<grid_for(rows, ROWS_PER_BLOCK), ROW_THREADS, 0, s>>>(
+      g, words, rowsums, nn, rows, aligned16(g));
+  const cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return (int)rc;
+  mean_abs_kernel<<<1, MA_THREADS, 0, s>>>(rowsums, scale, rows, padded / MA_TILE, inv_n,
+                                           aligned16(rowsums));
   return (int)cudaGetLastError();
 }
 
-// words (ceil(n/32),) u32, scale () f32 on the device -> out (n,) f32
+// words (ceil(n/32),) u32, scale () f32 on the device -> out (n,) f32, by the
+// plan of wire.dequant_plan(n, 512, out 16-byte aligned)
 extern "C" int wire_sign_unpack_f32(const uint32_t* words, const float* scale, float* out,
-                                     long long n, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  sign_unpack_kernel<<<grid_for(n, ELEM_THREADS), ELEM_THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(words, scale, out, n);
+                                     long long n, long long vec_chunks, int grid,
+                                     void* stream) {
+  if (!dequant_plan_ok(n, vec_chunks, grid) || (vec_chunks > 0 && !aligned16(out)))
+    return (int)cudaErrorInvalidValue;
+  sign_unpack_kernel<<<grid, DQ_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      words, scale, out, (unsigned)n, (unsigned)vec_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -425,13 +556,6 @@ extern "C" int wire_quant_pack_f32(const float* g, const float* u, uint32_t* wor
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
-}
-
-// the dequantizers' plan (wire.dequant_plan): n < 2^31 outputs in chunks of 4
-// values, the first vec_chunks on the vector path, grid blocks of DQ_TILE chunks
-inline bool dequant_plan_ok(long long n, long long vec_chunks, int grid) {
-  return n >= 1 && n <= 0x7fffffffLL && vec_chunks >= 0 && vec_chunks <= n / DQ_WIDTH &&
-         grid >= 1 && (unsigned)grid == grid_for((n + DQ_WIDTH - 1) / DQ_WIDTH, DQ_TILE);
 }
 
 // words (n_p*bits/32,) u32, scales (n_p/512,) f32 -> out (n,) f32, n <= n_p

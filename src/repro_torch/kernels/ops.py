@@ -143,14 +143,14 @@ def _fused_wire(bits: int, block: int) -> bool:
 
 def sign_wire(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """signSGD uplink of a flat ``g (n,)``: (words (ceil(n/32),), scale ()).
-    The scale is mean(|g|) by the two-stage tree: on the card the kernel
-    gives each row's sum and the rows are summed here, as the reference
-    finishes its kernel's partials, so both paths share one tree."""
+    The scale is mean(|g|) by the two-stage tree (``ref.mean_abs_ref``); on
+    the card ``wire.sign_pack`` finishes it on the device, so no torch op
+    runs between the kernel and the scale."""
     if _route(g) == "cpu":
         words, scale = ref.sign_pack_ref(g)
         return _words32(words), scale
-    words, rowsums = wire.sign_pack(g)
-    return words, ref.pairwise_sum(rowsums) * ref.recip32(g.shape[0])
+    words, _, scale = wire.sign_pack(g)
+    return words, scale
 
 
 def sign_unwire(words: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:

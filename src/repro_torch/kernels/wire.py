@@ -18,9 +18,11 @@ The quantizer wire (``csrc/quant_wire.cu``), on flat f32 vectors:
 with ``use_pallas``).  Their plain versions are ``ref.sign_pack_ref``,
 ``ref.sign_unpack_ref``, ``ref.quant_pack_ref`` and
 ``ref.unpack_dequant_ref``; each kernel equals its plain version bit for bit.
-All four are single passes bounded by HBM bandwidth.  The dequantizers
-(``unpack_dequant`` here, ``quant.block_dequant``) walk their output in
-chunks of 4 values, by a launch plan made here on the host
+All four are single passes bounded by HBM bandwidth.  ``sign_pack`` also
+finishes the mean-|g| scale on the device (``ref.mean_abs_ref``), so the
+sign wire runs no torch op on the card.  ``sign_unpack`` and the
+dequantizers (``unpack_dequant`` here, ``quant.block_dequant``) walk their
+output in chunks of 4 values, by a launch plan made here on the host
 (:func:`dequant_plan`) and passed to the kernel, so that the CPU tests can
 hold it.
 
@@ -36,7 +38,7 @@ uint32 values, held here as the bit patterns of an int32 tensor.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -70,8 +72,8 @@ class DequantPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def dequant_plan(n: int, block: int, aligned: bool) -> DequantPlan:
-    """The plan of ``unpack_dequant`` (``block`` 512) and
-    ``quant.block_dequant`` for n outputs: the vector path takes every whole
+    """The plan of ``unpack_dequant`` and ``sign_unpack`` (``block`` 512)
+    and ``quant.block_dequant`` for n outputs: the vector path takes every whole
     chunk when the operands are ``aligned`` for its loads and store (the
     codes to 4 bytes, the output to 16) and no chunk straddles two rows
     (``block % 4 == 0``); the ragged tail and any other case take the scalar
@@ -124,34 +126,60 @@ def coeff_dequant(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def sign_pack(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """g (n,) f32 on a CUDA device -> (words int32 (ceil(n/32),), rowsums f32
-    (ceil(n/512),)): bit i = (g_i < 0), and each 512-value row's |g| summed
-    by ``ref.pairwise_sum``'s tree."""
+def _check_flat(n: int) -> None:
+    if not 1 <= n < 2 ** 31:
+        raise ValueError(f"the sign wire takes 1 <= n < 2**31 values, got {n}")
+
+
+#: f32(1/n), rounded once, by n (the host's cost is on every call's path)
+_recip32 = functools.lru_cache(maxsize=256)(ref.recip32)
+
+
+def sign_pack(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """g (n,) f32 on a CUDA device, ``1 <= n < 2**31`` -> (words int32
+    (ceil(n/32),), rowsums f32 (ceil(n/512),), scale f32 ()): bit i = (g_i <
+    0), each 512-value row's |g| summed by ``ref.pairwise_sum``'s tree, and
+    the mean-|g| scale, the rows summed by the same tree times
+    ``ref.recip32(n)`` (``ref.mean_abs_ref``), finished on the device by a
+    second kernel of the same call."""
     check_operand("g", g, 1, g.device)
     n = g.shape[0]
+    _check_flat(n)
     words = torch.empty((-(-n // 32),), dtype=torch.int32, device=g.device)
     rowsums = torch.empty((_rows(n),), dtype=torch.float32, device=g.device)
-    if n:
-        with _build.device(g):
-            _build.launch("sign_pack", "wire_sign_pack_f32", g.data_ptr(), words.data_ptr(),
-                          rowsums.data_ptr(), n, _build.stream(g))
-    return words, rowsums
+    scale = torch.empty((), dtype=torch.float32, device=g.device)
+    with _build.device(g):
+        _build.launch("sign_pack", "wire_sign_pack_f32", g.data_ptr(), words.data_ptr(),
+                      rowsums.data_ptr(), scale.data_ptr(), n, _recip32(n), _build.stream(g))
+    return words, rowsums, scale
 
 
-def sign_unpack(words: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:
+def sign_unpack(words: torch.Tensor, scale: torch.Tensor, n: int,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """words int32 (ceil(n/32),) and a 0-dim f32 ``scale`` on the same CUDA
-    device -> (n,) f32, +scale where the bit is 0 and -scale where it is 1.
-    The kernel reads ``scale`` on the device: no host fetch."""
-    check_operand("words", words, 1, words.device, torch.int32)
-    check_operand("scale", scale, 0, words.device)
+    device -> (n,) f32, +scale where the bit is 0 and -scale where it is 1,
+    written into ``out`` (a contiguous (n,) f32 tensor of any alignment)
+    where given.  The kernel reads ``scale`` on the device: no host fetch.
+    It walks ``dequant_plan(n, 512, out aligned to 16 bytes)``."""
+    dev = words.device
+    check_operand("words", words, 1, dev, torch.int32)
+    check_operand("scale", scale, 0, dev)
     if words.shape[0] != -(-n // 32):
         raise ValueError(f"{words.shape[0]} words do not hold {n} signs")
-    out = torch.empty((n,), dtype=torch.float32, device=words.device)
+    if out is None:
+        out = torch.empty((n,), dtype=torch.float32, device=dev)
+    else:
+        check_operand("out", out, 1, dev)
+        if out.shape[0] != n:
+            raise ValueError(f"out holds {out.shape[0]} values, not {n}")
     if n:
+        _check_flat(n)
+        o = out.data_ptr()
+        plan = dequant_plan(n, ref.WIRE_BLOCK, o % 16 == 0)
         with _build.device(words):
             _build.launch("sign_unpack", "wire_sign_unpack_f32", words.data_ptr(),
-                          scale.data_ptr(), out.data_ptr(), n, _build.stream(words))
+                          scale.data_ptr(), o, n, plan.vec_chunks, plan.grid,
+                          _build.stream(words))
     return out
 
 

@@ -12,7 +12,10 @@ encode_quant's codes equal except by one where A/scale*127 sits within
 quantizer wire kernels (sign_pack, sign_unpack, quant_pack, unpack_dequant)
 and the block quantizer (block_quant, block_dequant, also through the wire
 route of the other bit widths) bit for bit, at every flat group size of the
-TinyLlama-width slice and at ragged sizes; the two dequantizers also at n
+TinyLlama-width slice and at ragged sizes (the sign wire also with -0.0,
++-inf and subnormals in g, its scale against ``ref.mean_abs_ref``, from a g
+and into an output off 16-byte alignment, and ``ops.sign_wire`` running
+no torch op but its outputs' allocation); the two dequantizers also at n
 from 1 to 17, 511, 513, 70,001 and 1,048,576, every width (block_dequant
 at blocks 512, 256, 96, 100 and 30 and in f32, bf16 and f16), with operands
 on and off 16-byte alignment; coeff_dequant bit for bit;
@@ -231,6 +234,15 @@ def test_cuda_wire_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         ops.encode_quant(torch.zeros(1, 128, 65, device=cuda), G)   # k > 64
 
 
+def _offset(x, misaligned):
+    """``x``, or a contiguous copy one element off 16-byte alignment."""
+    if not misaligned:
+        return x
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:].copy_(x)
+    return buf[1:]
+
+
 def _flat_sizes():
     """The flat group sizes of the TinyLlama-width slice (2 layers, vocab
     4096), plus ragged ones."""
@@ -257,23 +269,71 @@ def _same_bits(a, b):
     return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
-@pytest.mark.parametrize("n", _flat_sizes())
-def test_cuda_sign_wire_bit_exact(cuda, n):
-    g = torch.from_numpy(_flat(n, seed=n)).to(cuda)
+def _signs(n, seed):
+    """``_flat`` with +-inf and subnormals of both signs among the zeros."""
+    g = _flat(n, seed)
+    g[5::13] = np.float32(1e-40) * np.where(np.arange(len(g[5::13])) % 2, -1, 1)
+    if n >= 100:
+        g[97], g[n - 2] = np.inf, -np.inf
+    return g
+
+
+#: the sign wire's sizes: a word and a row on both sides, a ragged size and
+#: every flat group size
+SIGN_SIZES = sorted(set(_flat_sizes()) | {1, 31, 33, 511, 513, 70_001})
+
+
+@pytest.mark.parametrize("special", [False, True])
+@pytest.mark.parametrize("n", SIGN_SIZES)
+def test_cuda_sign_wire_bit_exact(cuda, n, special):
+    """words, row sums and the scale of sign_pack (also from a g one float
+    off 16-byte alignment, its scalar path) and sign_unpack (also into an
+    output one float off alignment) bit for bit; ``special`` puts -0.0,
+    +-inf and subnormals in g (the scale is then inf)."""
+    g = torch.from_numpy((_signs if special else _flat)(n, seed=n)).to(cuda)
     before = ops.launch_counts()
-    words, rowsums = wire.sign_pack(g)
+    words, rowsums, scale = wire.sign_pack(g)
     rw, rs = tref.sign_pack_ref(g)
     pad = (-n) % 512
     rows = tref.pairwise_sum(torch.nn.functional.pad(g.abs(), (0, pad)).reshape(-1, 512))
     assert torch.equal(_u32(words), rw) and _same_bits(rowsums, rows)
+    assert _same_bits(scale, rs) and _same_bits(scale.cpu(), tref.mean_abs_ref(g.cpu()))
+    gm = _offset(g, True)
+    mw, mrows, mscale = wire.sign_pack(gm)
+    assert torch.equal(mw, words) and _same_bits(mrows, rowsums) and _same_bits(mscale, scale)
     tw, ts = ops.sign_wire(g)
-    assert _same_bits(ts, rs) and _same_bits(ts.cpu(), tref.mean_abs_ref(g.cpu()))
+    assert torch.equal(tw, words) and _same_bits(ts, rs)
     out = wire.sign_unpack(words, ts, n)
-    assert _same_bits(out, tref.sign_unpack_ref(rw, rs, n))
+    want = tref.sign_unpack_ref(rw, rs, n)
+    assert _same_bits(out, want)
     assert bool((out[g == 0] == ts).all())
+    mis = _offset(torch.zeros(n, device=cuda), True)
+    assert wire.sign_unpack(words, ts, n, out=mis) is mis and _same_bits(mis, want)
     after = ops.launch_counts()
-    assert after["sign_pack"] == before["sign_pack"] + 2
-    assert after["sign_unpack"] == before["sign_unpack"] + 1
+    assert after["sign_pack"] == before["sign_pack"] + 3
+    assert after["sign_unpack"] == before["sign_unpack"] + 2
+
+
+def test_cuda_sign_wire_runs_no_torch_op(cuda):
+    """On the card ``ops.sign_wire`` launches its two kernels (sign_pack's
+    and the scale's finish) and nothing else: no aten op but the outputs'
+    allocation, no other device kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.from_numpy(_flat(70_001, seed=1)).to(cuda)
+    ops.sign_wire(g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ops.sign_wire(g)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    aten = {e.key for e in events if e.device_type == DeviceType.CPU
+            and e.key.startswith("aten::")}
+    kernels = sorted(e.key for e in events if e.device_type == DeviceType.CUDA)
+    assert aten <= {"aten::empty"}, aten
+    assert len(kernels) == 2 and any("sign_pack_kernel" in k for k in kernels) and any(
+        "mean_abs_kernel" in k for k in kernels), kernels
 
 
 @pytest.mark.parametrize("n,bits", [(n, 8) for n in _flat_sizes()] + [(70_001, 2), (70_001, 4),
@@ -323,6 +383,9 @@ def test_cuda_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         ops.sign_unwire(*wire.sign_pack(g)[:1], torch.ones((), device="cpu"), 1000)
     with pytest.raises(ValueError):
+        wire.sign_unpack(wire.sign_pack(g)[0], torch.ones((), device=cuda), 1000,
+                         out=torch.empty(999, device=cuda))          # out of the wrong size
+    with pytest.raises(ValueError):
         wire.sign_pack(g[::2])                              # non-contiguous
     with pytest.raises(TypeError):
         wire.sign_pack(g.double())
@@ -360,15 +423,6 @@ def test_cuda_block_quant_bit_exact(cuda, n, bits, block):
 #: the dequantizers' sizes: every chunk remainder, both sides of a row, a
 #: ragged size and one group size of the path
 DEQUANT_SIZES = list(range(1, 18)) + [511, 513, 70_001, 1_048_576]
-
-
-def _offset(x, misaligned):
-    """``x``, or a contiguous copy one element off 16-byte alignment."""
-    if not misaligned:
-        return x
-    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-    buf[1:].copy_(x)
-    return buf[1:]
 
 
 @pytest.mark.parametrize("misaligned", [False, True])
