@@ -18,7 +18,9 @@ script exits non-zero:
    by one where A/scale*127 sits within 1e-4 of a half-integer, and the
    exact M = 0 cases; the quantizer wire (sign_pack, sign_unpack,
    quant_pack, unpack_dequant) bit for bit at each flat group size and a
-   ragged one (bits 8, 2 and 4; unpack_dequant also on operands one element
+   ragged one (bits 8, 2 and 4; quant_pack also with -0.0, subnormals, x on
+   integers and uniforms of 0.0 and 1 - 2^-24, and from a g or a u one
+   float off 16-byte alignment; unpack_dequant also on operands one element
    off 16-byte alignment; the sign wire also with -0.0, +-inf and
    subnormals, from a g and into an output off alignment, and sign_pack's
    scale against ``ref.mean_abs_ref``); the sign wire through
@@ -26,9 +28,14 @@ script exits non-zero:
    per call and its device time by CUDA kernel (sign_pack's and the
    scale's finish), with their launches, at each flat group size and per
    client-round; block_quant and block_dequant bit for bit at
-   each flat group size and the ragged one, at bits 2 to 8 with 512-value
-   blocks and bits 6 with 256, 96, 100 and 30 (block_dequant also in bf16
-   and f16 and off alignment), and the 6-bit wire route against its oracle;
+   each flat group size and the ragged one, block_quant at bits 2 to 8 with
+   blocks of 512, 256, 96, 100 and 30, with the same special values and
+   misaligned g or u (block_dequant at bits 2 to 8 with 512 and 6 with the
+   others, also in bf16 and f16 and off alignment), and the 6-bit wire
+   route against its oracle; quant_pack (8 bits) and block_quant (6 bits)
+   as fedpaq and fedpaq-6bit call them, back-to-back with their host time
+   per call and by CUDA kernel with launches, and the device time of the
+   6-bit wire's integer pack and unpack (``phase_quant_wire``);
    unpack_dequant and block_dequant also back-to-back with their host time
    per call, summed per TinyLlama client-round; coeff_dequant bit for bit at the
    SVDFed-int8 group shapes, and decode(M, coeff_dequant(codes, scales))
@@ -620,6 +627,32 @@ def sign_specials(g):
     return g
 
 
+def quant_specials(g, bits):
+    """A copy of ``g`` with -0.0, subnormals of both signs, a zero row and
+    (past 2048 values) a 512-value row of max 1.0 whose values are f32(k /
+    levels), so that most x = g / scale * levels land on an integer."""
+    g = g.clone()
+    g[3::11] = -0.0
+    sub = torch.full_like(g[5::13], 1e-40)
+    sub[1::2] = -1e-40
+    g[5::13] = sub
+    if g.numel() >= 2048:
+        levels = (1 << (bits - 1)) - 1
+        k = torch.arange(512, device=g.device) % (2 * levels + 1) - levels
+        g[512:1024] = 0.0
+        g[1024:1536] = k.float() / levels
+        g[1024] = 1.0
+    return g
+
+
+def uniform_specials(u):
+    """A copy of the uniforms with exact 0.0 and 1 - 2^-24, the largest."""
+    u = u.clone()
+    u[::5] = 0.0
+    u[1::5] = 1.0 - 2.0 ** -24
+    return u
+
+
 def offset_copy(x):
     """A contiguous copy of ``x`` one element into a fresh buffer: not
     16-byte aligned, so the kernels take their scalar paths."""
@@ -631,8 +664,10 @@ def offset_copy(x):
 def phase_quant_kernels(flat_counts, ragged: int = 70_001):
     """Check and time the sign and quantizer wire kernels on flat vectors of
     each group size (and a ragged one) against their plain versions, bit for
-    bit (quant_pack and unpack_dequant at bits 8, 2 and 4; unpack_dequant
-    also on operands one element off 16-byte alignment); like
+    bit (quant_pack and unpack_dequant at bits 8, 2 and 4; quant_pack also
+    with -0.0, subnormals, x on integers and uniforms of 0.0 and 1 - 2^-24,
+    and with g or u one float off 16-byte alignment; unpack_dequant also on
+    operands one element off 16-byte alignment); like
     ``phase_kernels``, numbers summed over one client's round (flat_counts[n]
     launches of size n), with unpack_dequant also back-to-back.  Also times
     the quantizer's uniform draw over the padded length.  Returns (totals,
@@ -689,6 +724,7 @@ def phase_quant_kernels(flat_counts, ragged: int = 70_001):
                                        float((rowsums - rrows).abs().max()),
                                        float((scale - rscale).abs()))
                 err["sign_unpack"] = float((out - rout).abs().max())
+        us = uniform_specials(u)
         for bits in (8, 2, 4):
             qw, qs = wire.quant_pack(g, u, bits)
             rqw, rqs = ref.quant_pack_ref(gp, u, 512, bits)
@@ -697,6 +733,14 @@ def phase_quant_kernels(flat_counts, ragged: int = 70_001):
             # the scalar path: words and scales one element off alignment
             mis = wire.unpack_dequant(offset_copy(qw), offset_copy(qs), n, bits)
             ok[f"quant_pack/{bits}"] = torch.equal(u32(qw), rqw) and same(qs, rqs)
+            # special values, and quant_pack's scalar path: g or u one float
+            # off 16-byte alignment
+            gs = quant_specials(g, bits)
+            sw, ss = ref.quant_pack_ref(F.pad(gs, (0, n_p - n)), us, 512, bits)
+            for label, gm, um in (("specials", gs, us), ("g-offset", offset_copy(gs), us),
+                                  ("u-offset", gs, offset_copy(us))):
+                mw, ms = wire.quant_pack(gm, um, bits)
+                ok[f"quant_pack/{bits}/{label}"] = torch.equal(u32(mw), sw) and same(ms, ss)
             ok[f"unpack_dequant/{bits}"] = same(deq, rdeq) and same(mis, rdeq)
             err["quant_pack"] = max(err["quant_pack"], float((u32(qw) - rqw).abs().max()),
                                     float((qs - rqs).abs().max()))
@@ -780,6 +824,12 @@ def phase_sign_wire(flat_counts):
                                f"{counts[kernel]:g} launches/call")
                 dev[name, kernel] += w * us
                 kernels[name, kernel] += w * counts[kernel]
+    return _device_rows(rows, dev, kernels)
+
+
+def _device_rows(rows, dev, kernels):
+    """Sum ``dev[name, kernel]`` (device us per client-round) into each
+    ``rows[name]["device_us"]`` and print it by kernel, with launches."""
     for name, row in rows.items():
         mine = {k: us for (nm, k), us in dev.items() if nm == name}
         row["device_us"] = sum(mine.values())
@@ -787,6 +837,58 @@ def phase_sign_wire(flat_counts):
             + ", ".join(f"{k} {us:.1f} ({us / row['device_us']:.1%}, "
                         f"{kernels[name, k]:g} launches)" for k, us in mine.items()))
     return rows
+
+
+def phase_quant_wire(flat_counts):
+    """The two quantizers as fedpaq (``wire.quant_pack`` at 8 bits) and
+    fedpaq-6bit (``quant.block_quant`` at 6 bits, 512-value blocks) call
+    them, at each flat group size, with the uniforms drawn once outside the
+    timed calls: back-to-back with their host time per call
+    (``log_b2b_alone``) beside their bound (9 bytes a value: g, u and a
+    byte of codes), and their device time by CUDA kernel with launches per
+    call (``profile_device_us``), each summed over one client's round
+    (flat_counts[n] calls).  Also the device time of the 6-bit wire's
+    integer pack and unpack around block_quant, the int64 tensor ops of
+    ``ops.block_quant_wire`` and ``ops.block_dequant_wire`` (rows
+    "pack6" and "unpack6").  It uses only the wrappers' signatures, so it
+    times a parent tree the same way.  Returns {"quant_pack": row,
+    "block_quant": row, "pack6": row, "unpack6": row}, the first two with
+    b2b_ms, host_us and device_us per client-round, the others device_us."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops, quant, ref, wire
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = {"quant_pack": {}, "block_quant": {}, "pack6": {}, "unpack6": {}}
+    dev, kernels = collections.defaultdict(float), collections.defaultdict(float)
+    levels = int(ref.quant_levels(6))
+    for n in sorted(flat_counts):
+        w = flat_counts[n]
+        n_p = -(-n // 512) * 512
+        g = torch.randn(n, device="cuda", generator=gen) * 1e-3
+        g[::7] = 0.0
+        u = prng.uniform(prng.PRNGKey(n, "cuda"), (n_p,))
+        codes, _ = quant.block_quant(g, u, 512, 6)
+
+        def pack6(codes=codes):
+            return ops._words32(ref.pack_codes_ref(codes.to(torch.int64) + levels, 6))
+
+        words6 = pack6()
+        nbytes = 4 * n + 4 * n_p + n_p + 4 * (n_p // 512)
+        for name, fn in (("quant_pack", lambda: wire.quant_pack(g, u, 8)),
+                         ("block_quant", lambda: quant.block_quant(g, u, 512, 6)),
+                         ("pack6", pack6),
+                         ("unpack6", lambda: (ref.unpack_codes_ref(words6, 6, n_p)
+                                              - levels).to(torch.int8))):
+            if name in ("quant_pack", "block_quant"):
+                log_b2b_alone(f"{name} n={n} (x{w} a client-round)", fn, w, rows[name],
+                              bound_ms(nbytes, 8 * n_p)[0])
+            counts = {}
+            for kernel, us in profile_device_us(fn, launches=counts).items():
+                log("profile", f"{name} n={n}: {kernel} {us:.2f} us/call, "
+                               f"{counts[kernel]:g} launches/call")
+                dev[name, kernel] += w * us
+                kernels[name, kernel] += w * counts[kernel]
+    return _device_rows(rows, dev, kernels)
 
 
 def flat_group_counts(arch):
@@ -800,11 +902,13 @@ def flat_group_counts(arch):
 
 def phase_block_quant_kernels(flat_counts, ragged: int = 70_001):
     """Check block_quant and block_dequant bit for bit against their plain
-    versions at every flat group size and a ragged one, at every bits from 2
-    to 8 with 512-value blocks and bits 6 with blocks of 256, 96, 100 (not a
-    multiple of 16) and 30 (not a multiple of block_dequant's 4-value
-    chunks); block_dequant also in bf16 and f16 and on operands one element
-    off alignment; and the 6-bit wire route
+    versions at every flat group size and a ragged one: block_quant at every
+    bits from 2 to 8 with blocks of 512, 256, 96, 100 (not a multiple of 16)
+    and 30 (not a multiple of the 4-value chunks), also with -0.0,
+    subnormals, x on integers and uniforms of 0.0 and 1 - 2^-24, and with g
+    or u one float off 16-byte alignment (its scalar path); block_dequant
+    at every bits with 512 and at 6 bits with the others, also in bf16 and
+    f16 and on operands one element off alignment; and the 6-bit wire route
     (``ops.block_quant_wire``/``block_dequant_wire``) against its oracle;
     time both kernels at 6 bits and 512 (the fedpaq-6bit run), summed over
     one client's round like ``phase_kernels``, block_dequant also
@@ -827,31 +931,43 @@ def phase_block_quant_kernels(flat_counts, ragged: int = 70_001):
         g[::7] = 0.0
         key = prng.PRNGKey(n + 1, "cuda")
         ok = {}
-        for bits, block in ((2, 512), (3, 512), (4, 512), (5, 512), (6, 512), (7, 512),
-                            (8, 512), (6, 256), (6, 96), (6, 100), (6, 30)):
+        for block in (512, 256, 96, 100, 30):
             pad = (-n) % block
             n_p = n + pad
             u = prng.uniform(key, (n_p,))
+            us = uniform_specials(u)
             gp = F.pad(g, (0, pad))
-            c, sc = quant.block_quant(g, u, block, bits)
-            rc, rsc = ref.block_quant_ref(gp, u, block, bits)
-            d = quant.block_dequant(c, sc, n, block, bits)
-            rd = ref.block_dequant_ref(rc, rsc, block, bits)[:n]
-            ok[f"{bits}/{block}"] = torch.equal(c, rc) and same(sc, rsc) and same(d, rd)
-            if bits == 6 and block in (512, 100, 30):
-                # bf16 and f16, each rounded once from the f32 value, and the
-                # scalar path on codes and scales one element off alignment
-                for dt in (torch.bfloat16, torch.float16):
-                    h = quant.block_dequant(c, sc, n, block, bits, dt)
-                    ok[f"{bits}/{block}/{dt}"] = torch.equal(h.view(torch.int16),
-                                                             rd.to(dt).view(torch.int16))
-                mis = quant.block_dequant(offset_copy(c), offset_copy(sc), n, block, bits)
-                ok[f"{bits}/{block}/offset"] = same(mis, rd)
-            tot["block_quant"]["err"] = max(tot["block_quant"]["err"],
-                                            float((c.int() - rc.int()).abs().max()),
-                                            float((sc - rsc).abs().max()))
-            tot["block_dequant"]["err"] = max(tot["block_dequant"]["err"],
-                                              float((d - rd).abs().max()))
+            for bits in range(2, 9):
+                c, sc = quant.block_quant(g, u, block, bits)
+                rc, rsc = ref.block_quant_ref(gp, u, block, bits)
+                ok[f"{bits}/{block}"] = torch.equal(c, rc) and same(sc, rsc)
+                # special values, and the scalar path: g or u one float off
+                # 16-byte alignment
+                gs = quant_specials(g, bits)
+                src, srs = ref.block_quant_ref(F.pad(gs, (0, pad)), us, block, bits)
+                for label, gm, um in (("specials", gs, us), ("g-offset", offset_copy(gs), us),
+                                      ("u-offset", gs, offset_copy(us))):
+                    mc, ms = quant.block_quant(gm, um, block, bits)
+                    ok[f"{bits}/{block}/{label}"] = torch.equal(mc, src) and same(ms, srs)
+                tot["block_quant"]["err"] = max(tot["block_quant"]["err"],
+                                                float((c.int() - rc.int()).abs().max()),
+                                                float((sc - rsc).abs().max()))
+                if bits != 6 and block != 512:
+                    continue
+                d = quant.block_dequant(c, sc, n, block, bits)
+                rd = ref.block_dequant_ref(rc, rsc, block, bits)[:n]
+                ok[f"{bits}/{block}/dequant"] = same(d, rd)
+                if bits == 6 and block in (512, 100, 30):
+                    # bf16 and f16, each rounded once from the f32 value, and the
+                    # scalar path on codes and scales one element off alignment
+                    for dt in (torch.bfloat16, torch.float16):
+                        h = quant.block_dequant(c, sc, n, block, bits, dt)
+                        ok[f"{bits}/{block}/{dt}"] = torch.equal(h.view(torch.int16),
+                                                                 rd.to(dt).view(torch.int16))
+                    mis = quant.block_dequant(offset_copy(c), offset_copy(sc), n, block, bits)
+                    ok[f"{bits}/{block}/offset"] = same(mis, rd)
+                tot["block_dequant"]["err"] = max(tot["block_dequant"]["err"],
+                                                  float((d - rd).abs().max()))
         # the 6-bit wire route: block_quant, bias, integer pack, and back
         words, scales, pad = ops.block_quant_wire(g, key, bits=6)
         rw, rs = ref.quant_pack_ref(F.pad(g, (0, pad)), prng.uniform(key, (n + pad,)), 512, 6)
@@ -861,7 +977,7 @@ def phase_block_quant_kernels(flat_counts, ragged: int = 70_001):
         torch.cuda.synchronize()
         if not all(ok.values()):
             raise AssertionError(f"block quantizer kernel differs from its plain version at "
-                                 f"n={n}: {ok}")
+                                 f"n={n}: {[k for k, v in ok.items() if not v]}")
         pad = (-n) % 512
         n_p, rows = n + pad, (n + pad) // 512
         u = prng.uniform(key, (n_p,))
@@ -876,7 +992,9 @@ def phase_block_quant_kernels(flat_counts, ragged: int = 70_001):
         b = {"block_quant": bound_ms(4 * n + 4 * n_p + n_p + 4 * rows, 8 * n_p),
              "block_dequant": bound_ms(n_p + 4 * rows + 4 * n, 2 * n)}
         w = flat_counts.get(n, 0)
-        log("kernels", f"n={n} block quantizer bit-exact {ok}, launches/client-round {w}")
+        log("kernels", f"n={n} block quantizer bit-exact: all {len(ok)} checks (bits 2-8 at "
+                       f"blocks 512, 256, 96, 100, 30, each also with special values and g or u "
+                       f"off alignment; the dequantizer; wire/6), launches/client-round {w}")
         log_b2b_alone("block_dequant (6 bits)", lambda: quant.block_dequant(c, sc, n, 512, 6),
                       w, tot["block_dequant"], b["block_dequant"][0])
         for name in names:
@@ -1242,6 +1360,9 @@ def main() -> int:
     btot, bbound_by = phase_block_quant_kernels(flat_counts)
     tot.update(btot)
     bound_by.update(bbound_by)
+    for name, row in phase_quant_wire(flat_counts).items():
+        if name in tot:
+            tot[name].update(row)
     tot["coeff_dequant"], bound_by["coeff_dequant"] = phase_coeff_dequant(shapes, group_counts)
     tot["flash_attention"], bound_by["flash_attention"] = phase_flash()
     log("kernels", f"kernels: gradestc_encode, gradestc_decode, coeff_quant, encode_quant, "
@@ -1254,7 +1375,8 @@ def main() -> int:
         f"{k} {tot[k]['ms']:.4f} ms (plain {tot[k]['plain_ms']:.4f}, bound "
         f"{tot[k]['bound_ms']:.4f})" for k in (*qtot, *btot))
         + f"; uniform draws {uniform_ms:.4f} ms")
-    for k in ("sign_pack", "sign_unpack", "unpack_dequant", "block_dequant"):
+    for k in ("sign_pack", "sign_unpack", "quant_pack", "unpack_dequant", "block_quant",
+              "block_dequant"):
         log("kernels", f"tinyllama {k} per client-round: kernel {tot[k]['ms']:.4f} ms "
                        f"(back-to-back {tot[k]['b2b_ms']:.4f}, host {tot[k]['host_us']:.1f} us), "
                        f"bound {tot[k]['bound_ms']:.4f}")

@@ -49,9 +49,9 @@ _SIGNATURES = {
     "gradestc_decode_wire_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "wire_sign_pack_f32": [_P, _P, _P, _P, _L, _F, _P],
     "wire_sign_unpack_f32": [_P, _P, _P, _L, _L, _I, _P],
-    "wire_quant_pack_f32": [_P, _P, _P, _P, _L, _I, _P],
+    "wire_quant_pack_f32": [_P, _P, _P, _P, _L, _I, _L, _I, _P],
     "wire_unpack_dequant_f32": [_P, _P, _P, _L, _I, _L, _I, _P],
-    "quant_block_quant_f32": [_P, _P, _P, _P, _L, _I, _I, _P],
+    "quant_block_quant_f32": [_P, _P, _P, _P, _L, _I, _I, _L, _I, _P],
     "quant_block_dequant": [_P, _P, _P, _L, _I, _I, _I, _L, _I, _P],
     "wire_coeff_dequant_f32": [_P, _P, _P, _L, _I, _P],
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,

@@ -118,16 +118,36 @@
 //     plan -- how many chunks take the vector path, and the grid
 //     (wire.dequant_plan) -- and the entry points check it; n < 2^31, so
 //     indices are 32-bit.
-//   quant_pack: 256 threads, one warp per row; lane L owns the 16 values
-//     16L..16L+15 of its row (four float4 loads of g and of u when the row is
-//     whole and aligned), keeps them in registers across the warp's max
-//     reduction, and writes its 16*bits/32 words.  Values past n read as 0.0
-//     (the reference's zero padding), so g is never copied to a padded
-//     buffer; u covers the padded length, as the reference draws it.
-//   block_quant: 256 threads, one warp per row of `block` values, which the
-//     lanes stride over (coalesced) twice: once for the max, once, from L1
-//     and L2, to quantize.  A block that is not a multiple of 32 leaves some
-//     lanes idle in its last stride.  g reads as 0.0 past n, as in quant_pack.
+//   quant_pack, block_quant (redesigned for the H100): one row walk for
+//     both, in the sign wire's layout.  256 threads, a warp per row; in step
+//     q (0..3) lane L takes chunk 32q + L of its row, the float4 of g and the
+//     float4 of u at values 128q + 4L .. 128q + 4L + 3, so a warp access
+//     reads 512 contiguous bytes of each (16 contiguous values a lane
+//     would span 2 KB at a 64-byte lane stride per load).  Every load of a
+//     row (8 float4 a lane) is in flight before the max, by streaming loads
+//     (__ldcs: nothing reads g or u again), and the max is fmaxf over the
+//     lane's values, then 5 xor shuffles.  Each value keeps the plain version's sequence (quant_code),
+//     with levels a compile-time constant: the entry points dispatch bits to
+//     their instantiations; a zero g skips the IEEE division's slow path.  The stores are whole words from contiguous
+//     lanes: quant_pack's 4 codes of a step are 4 * bits bits at code 128q +
+//     4L -- at 8 bits word 32q + L; at 4 bits half of word 16q + L / 2, and
+//     at 2 bits byte L % 4 of word 8q + L / 4, whole after one or two xor
+//     shuffles and handed by one more to the lane that stores it, so a
+//     warp's word store covers 128 contiguous bytes; block_quant's 4 int8
+//     codes are one 4-byte store at code 4 (32q + L) of the row.  Lane 0
+//     writes the scale.  The host makes the plan (wire.quant_plan: the rows,
+//     how many take the vector path, the grid) and the entry points check
+//     it.  The vector path needs the row whole below n, block % 4 == 0 and
+//     block <= 512, g and u 16-byte aligned and (block_quant) the codes
+//     4-byte aligned; the
+//     ragged last row and unaligned operands load value by value in the same
+//     walk (g reads as 0.0 past n, the reference's zero padding, so g is
+//     never copied to a padded buffer; u covers the padded length, as the
+//     reference draws it) and block_quant stores them byte by byte; a block
+//     that is not a multiple of 4 or is longer than 512 values (no path
+//     runs either) goes value by value, strided over the lanes, twice (the
+//     max, then the codes).  The uniforms are an operand, as in the TPU
+//     kernels: no draw happens here.  n_p < 2^31, so indices are 32-bit.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -137,7 +157,7 @@
 namespace {
 
 constexpr int ROW = 512;           // values per wire row (ref.WIRE_BLOCK)
-constexpr int ROW_THREADS = 256;   // 8 warps, one row each
+constexpr int ROW_THREADS = 256;   // 8 warps, one row each (wire.QUANT_ROWS_PER_BLOCK rows)
 constexpr int ROWS_PER_BLOCK = ROW_THREADS / 32;
 constexpr int ELEM_THREADS = 256;
 // the dequantizers: a chunk of 4 values a thread-step, DQ_UNROLL chunks a
@@ -159,8 +179,8 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr float INV127 = 0x1.020408p-7f;
 
 // four consecutive values from i (a multiple of 4); 0.0 past n
-template <typename I>
-__device__ __forceinline__ float4 load4(const float* __restrict__ p, I i, I n, bool vec) {
+__device__ __forceinline__ float4 load4(const float* __restrict__ p, unsigned i, unsigned n,
+                                        bool vec) {
   if (vec && i + 3 < n) return *reinterpret_cast<const float4*>(p + i);
   float4 r;
   r.x = i < n ? p[i] : 0.0f;
@@ -289,48 +309,113 @@ sign_unpack_kernel(const uint32_t* __restrict__ words, const float* __restrict__
   }
 }
 
-template <int BITS>
-__global__ void __launch_bounds__(ROW_THREADS)
-quant_pack_kernel(const float* __restrict__ g, const float* __restrict__ u,
-                  uint32_t* __restrict__ words, float* __restrict__ scales,
-                  long long n, int rows, bool vec) {
-  constexpr int CPW = 32 / BITS;             // codes per word
-  constexpr int WPL = 16 / CPW;              // words per lane
-  constexpr float LEVELS = (float)((1 << (BITS - 1)) - 1);
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
-  if (row >= rows) return;
-  const long long base = (long long)row * ROW + 16 * lane;
-  const long long n_p = (long long)rows * ROW;
-  float gv[16], uv[16];
+// the quantizers' row walk: in step q lane L takes chunk 32q + L (if below
+// cpr, the row's chunks) of g and u, the 4 values at base + 4 (32q + L), every
+// load in flight before the max; returns the row's scale, max(max|g|, 1e-12)
+// (fmaxf is exact in any order).  vec: the row is whole below n and g and u
+// are 16-byte aligned (streaming float4 loads); else value by value, g 0.0
+// past n
+__device__ __forceinline__ float load_row(const float* __restrict__ g,
+                                          const float* __restrict__ u, unsigned base,
+                                          unsigned cpr, unsigned n, unsigned n_p, bool vec,
+                                          float4 (&gv)[4], float4 (&uv)[4]) {
+  const unsigned lane = threadIdx.x % 32;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const float4 a = load4(g, base + 4 * q, n, vec);
-    const float4 b = load4(u, base + 4 * q, n_p, vec);
-    gv[4 * q] = a.x; gv[4 * q + 1] = a.y; gv[4 * q + 2] = a.z; gv[4 * q + 3] = a.w;
-    uv[4 * q] = b.x; uv[4 * q + 1] = b.y; uv[4 * q + 2] = b.z; uv[4 * q + 3] = b.w;
+    const unsigned c = 32 * q + lane, i = base + 4 * c;
+    gv[q] = uv[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (c < cpr && vec) {
+      gv[q] = __ldcs(reinterpret_cast<const float4*>(g + i));
+      uv[q] = __ldcs(reinterpret_cast<const float4*>(u + i));
+    } else if (c < cpr) {
+      gv[q] = load4(g, i, n, false);
+      uv[q] = load4(u, i, n_p, false);
+    }
   }
   float mx = 0.0f;
 #pragma unroll
-  for (int c = 0; c < 16; ++c) mx = fmaxf(mx, fabsf(gv[c]));
+  for (int q = 0; q < 4; ++q)
+    mx = fmaxf(fmaxf(fmaxf(fmaxf(mx, fabsf(gv[q].x)), fabsf(gv[q].y)), fabsf(gv[q].z)),
+               fabsf(gv[q].w));
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
-  const float scale = fmaxf(mx, SCALE_FLOOR);
-  uint32_t w[WPL];
+  return fmaxf(mx, SCALE_FLOOR);
+}
+
+// one value's code in [-levels, levels], as a float: x = g / scale * levels,
+// floor(x) + (u < x - floor(x)), clipped; each step rounded once, as the
+// plain version rounds it (no FMA).  A g of +-0.0 gives code +0.0 (x = +-0,
+// x - floor(x) = +0, and no u is below it), so it is selected without the
+// division: IEEE division sends a zero dividend to its slow path, which
+// cost the warp a call wherever one of its lanes held a zero (a 2,048-value
+// call took 3.8 us instead of 2.0 at one zero in seven)
+template <int BITS>
+__device__ __forceinline__ float quant_code(float g, float u, float scale) {
+  constexpr float LEVELS = (float)((1 << (BITS - 1)) - 1);
+  const float x = __fmul_rn(__fdiv_rn(g == 0.0f ? scale : g, scale), LEVELS);
+  const float lo = floorf(x);
+  const float code = __fadd_rn(lo, u < __fsub_rn(x, lo) ? 1.0f : 0.0f);
+  return g == 0.0f ? 0.0f : fminf(fmaxf(code, -LEVELS), LEVELS);
+}
+
+// a chunk's 4 codes biased by +levels, code j at bit j * BITS
+template <int BITS>
+__device__ __forceinline__ uint32_t biased4(float4 g, float4 u, float scale) {
+  constexpr float LEVELS = (float)((1 << (BITS - 1)) - 1);
+  const float c[4] = {quant_code<BITS>(g.x, u.x, scale), quant_code<BITS>(g.y, u.y, scale),
+                      quant_code<BITS>(g.z, u.z, scale), quant_code<BITS>(g.w, u.w, scale)};
+  uint32_t w = 0u;
 #pragma unroll
-  for (int k = 0; k < WPL; ++k) w[k] = 0u;
+  for (int j = 0; j < 4; ++j) w |= (uint32_t)(int)__fadd_rn(c[j], LEVELS) << (j * BITS);
+  return w;
+}
+
+template <int BITS>
+__global__ void __launch_bounds__(ROW_THREADS)
+quant_pack_kernel(const float* __restrict__ g, const float* __restrict__ u,
+                  uint32_t* __restrict__ words, float* __restrict__ scales, unsigned n,
+                  unsigned rows, unsigned vec_rows) {
+  const unsigned lane = threadIdx.x % 32;
+  const unsigned row = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
+  if (row >= rows) return;
+  float4 gv[4], uv[4];
+  const float scale = load_row(g, u, row * ROW, ROW / 4, n, rows * ROW, row < vec_rows, gv, uv);
+  uint32_t w[4];
 #pragma unroll
-  for (int c = 0; c < 16; ++c) {
-    const float x = __fmul_rn(__fdiv_rn(gv[c], scale), LEVELS);
-    const float lo = floorf(x);
-    float code = __fadd_rn(lo, uv[c] < __fsub_rn(x, lo) ? 1.0f : 0.0f);
-    code = fminf(fmaxf(code, -LEVELS), LEVELS);
-    const uint32_t biased = (uint32_t)(int)__fadd_rn(code, LEVELS);
-    w[c / CPW] |= biased << ((c % CPW) * BITS);
+  for (int q = 0; q < 4; ++q) w[q] = biased4<BITS>(gv[q], uv[q], scale);
+  uint32_t* out = words + row * (ROW * BITS / 32);
+  if (BITS == 8) {
+    // lane L's 4 codes of step q are word 32q + L
+#pragma unroll
+    for (int q = 0; q < 4; ++q) __stcs(out + 32 * q + lane, w[q]);
+  } else if (BITS == 4) {
+    // lane L's 16 bits are half L % 2 of word 16q + L / 2: whole after xor 1;
+    // word 32p + L is word 16q + L % 16 of step q = 2p + L / 16, in lane 2 (L % 16)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      w[q] <<= 16 * (lane % 2);
+      w[q] |= __shfl_xor_sync(FULL, w[q], 1);
+    }
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const uint32_t lo = __shfl_sync(FULL, w[2 * p], 2 * (lane % 16));
+      const uint32_t hi = __shfl_sync(FULL, w[2 * p + 1], 2 * (lane % 16));
+      __stcs(out + 32 * p + lane, lane < 16 ? lo : hi);
+    }
+  } else {
+    // 2 bits: lane L's byte is byte L % 4 of word 8q + L / 4: whole after xor
+    // 1 and 2; word L is word 8q + L % 8 of step q = L / 8, in lane 4 (L % 8)
+    uint32_t mine = 0u;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      w[q] <<= 8 * (lane % 4);
+      w[q] |= __shfl_xor_sync(FULL, w[q], 1);
+      w[q] |= __shfl_xor_sync(FULL, w[q], 2);
+      const uint32_t t = __shfl_sync(FULL, w[q], 4 * (lane % 8));
+      if (lane / 8 == q) mine = t;
+    }
+    __stcs(out + lane, mine);
   }
-  uint32_t* out = words + ((long long)row * ROW + 16 * lane) / CPW;
-#pragma unroll
-  for (int k = 0; k < WPL; ++k) out[k] = w[k];
   if (lane == 0) scales[row] = scale;
 }
 
@@ -385,30 +470,59 @@ unpack_dequant_kernel(const uint32_t* __restrict__ words, const float* __restric
   }
 }
 
+// a chunk's 4 int8 codes from codes + i: one 4-byte store (vec), or byte by byte
+template <int BITS>
+__device__ __forceinline__ void store_codes(int8_t* __restrict__ codes, unsigned i, float4 g,
+                                            float4 u, float scale, bool vec) {
+  const int8_t c[4] = {(int8_t)(int)quant_code<BITS>(g.x, u.x, scale),
+                       (int8_t)(int)quant_code<BITS>(g.y, u.y, scale),
+                       (int8_t)(int)quant_code<BITS>(g.z, u.z, scale),
+                       (int8_t)(int)quant_code<BITS>(g.w, u.w, scale)};
+  if (vec) {
+    __stcs(reinterpret_cast<unsigned*>(codes + i),
+           (uint32_t)(uint8_t)c[0] | (uint32_t)(uint8_t)c[1] << 8 |
+               (uint32_t)(uint8_t)c[2] << 16 | (uint32_t)(uint8_t)c[3] << 24);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) codes[i + j] = c[j];
+  }
+}
+
+template <int BITS>
 __global__ void __launch_bounds__(ROW_THREADS)
 block_quant_kernel(const float* __restrict__ g, const float* __restrict__ u,
-                   int8_t* __restrict__ codes, float* __restrict__ scales,
-                   long long n, long long rows, int block, int bits) {
-  const int lane = threadIdx.x % 32;
-  const long long row = (long long)blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
+                   int8_t* __restrict__ codes, float* __restrict__ scales, unsigned n,
+                   unsigned rows, unsigned block, unsigned vec_rows) {
+  const unsigned lane = threadIdx.x % 32;
+  const unsigned row = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
   if (row >= rows) return;
-  const float levels = (float)((1 << (bits - 1)) - 1);
-  const long long base = row * block;
-  float mx = 0.0f;
-  for (int c = lane; c < block; c += 32) {
-    const long long i = base + c;
-    if (i < n) mx = fmaxf(mx, fabsf(g[i]));
-  }
+  const unsigned base = row * block, n_p = rows * block, cpr = block / 4;
+  const bool vec = row < vec_rows;
+  float scale;
+  if (block % 4 == 0 && block <= ROW) {
+    // whole chunks, the row in registers: one pass
+    float4 gv[4], uv[4];
+    scale = load_row(g, u, base, cpr, n, n_p, vec, gv, uv);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
-  const float scale = fmaxf(mx, SCALE_FLOOR);
-  for (int c = lane; c < block; c += 32) {
-    const long long i = base + c;
-    const float x = __fmul_rn(__fdiv_rn(i < n ? g[i] : 0.0f, scale), levels);
-    const float lo = floorf(x);
-    float code = __fadd_rn(lo, u[i] < __fsub_rn(x, lo) ? 1.0f : 0.0f);
-    code = fminf(fmaxf(code, -levels), levels);
-    codes[i] = (int8_t)(int)code;
+    for (int q = 0; q < 4; ++q) {
+      const unsigned c = 32 * q + lane;
+      if (c < cpr) store_codes<BITS>(codes, base + 4 * c, gv[q], uv[q], scale, vec);
+    }
+  } else {
+    // a block that is not a multiple of 4, or longer than 512 values (no
+    // path runs either): value by value, strided over the lanes, twice
+    float mx = 0.0f;
+    for (unsigned j = lane; j < block; j += 32) {
+      const unsigned i = base + j;
+      if (i < n) mx = fmaxf(mx, fabsf(g[i]));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+    scale = fmaxf(mx, SCALE_FLOOR);
+    for (unsigned j = lane; j < block; j += 32) {
+      const unsigned i = base + j;
+      codes[i] = (int8_t)(int)quant_code<BITS>(i < n ? g[i] : 0.0f, u[i], scale);
+    }
   }
   if (lane == 0) scales[row] = scale;
 }
@@ -508,6 +622,17 @@ inline bool dequant_plan_ok(long long n, long long vec_chunks, int grid) {
          grid >= 1 && (unsigned)grid == grid_for((n + DQ_WIDTH - 1) / DQ_WIDTH, DQ_TILE);
 }
 
+// the quantizers' plan (wire.quant_plan): n values in rows of `block`, n_p =
+// rows * block < 2^31, the first vec_rows rows (whole below n; block % 4 == 0
+// and block <= 512) on the vector path, grid blocks of ROWS_PER_BLOCK rows
+inline bool quant_plan_ok(long long n, int block, long long vec_rows, int grid) {
+  if (n < 1 || block < 1) return false;
+  const long long rows = (n + block - 1) / block;
+  return rows * block <= 0x7fffffffLL && vec_rows >= 0 && vec_rows <= n / block &&
+         (vec_rows == 0 || (block % 4 == 0 && block <= ROW)) && grid >= 1 &&
+         (unsigned)grid == grid_for(rows, ROWS_PER_BLOCK);
+}
+
 // g (n,) f32, n < 2^31 -> words (ceil(n/32),) u32, rowsums (ceil(n/512),) f32 and
 // scale () f32, the rows' pairwise sum times inv_n = f32(1/n) (ref.recip32(n)):
 // sign_pack_kernel, then mean_abs_kernel on the same stream
@@ -539,21 +664,21 @@ extern "C" int wire_sign_unpack_f32(const uint32_t* words, const float* scale, f
   return (int)cudaGetLastError();
 }
 
-// g (n,) f32, u (n_p,) f32 with n_p = ceil(n/512)*512 -> words (n_p*bits/32,) u32,
-// scales (n_p/512,) f32
+// g (n,) f32, u (n_p,) f32 with n_p = ceil(n/512)*512 < 2^31 -> words
+// (n_p*bits/32,) u32, scales (n_p/512,) f32, by the plan of wire.quant_plan(n,
+// 512, g and u 16-byte aligned)
 extern "C" int wire_quant_pack_f32(const float* g, const float* u, uint32_t* words,
-                                    float* scales, long long n, int bits, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  const long long rows = (n + ROW - 1) / ROW;
-  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const bool vec = aligned16(g) && aligned16(u);
-  const unsigned grid = grid_for(rows, ROWS_PER_BLOCK);
+                                    float* scales, long long n, int bits, long long vec_rows,
+                                    int grid, void* stream) {
+  if (!quant_plan_ok(n, ROW, vec_rows, grid) || (bits != 2 && bits != 4 && bits != 8) ||
+      (vec_rows > 0 && !(aligned16(g) && aligned16(u))))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned nn = (unsigned)n, rows = (nn + ROW - 1) / ROW, vr = (unsigned)vec_rows;
   switch (bits) {
-    case 2: quant_pack_kernel<2><<<grid, ROW_THREADS, 0, s>>>(g, u, words, scales, n, (int)rows, vec); break;
-    case 4: quant_pack_kernel<4><<<grid, ROW_THREADS, 0, s>>>(g, u, words, scales, n, (int)rows, vec); break;
-    case 8: quant_pack_kernel<8><<<grid, ROW_THREADS, 0, s>>>(g, u, words, scales, n, (int)rows, vec); break;
-    default: return (int)cudaErrorInvalidValue;
+    case 2: quant_pack_kernel<2><<<grid, ROW_THREADS, 0, s>>>(g, u, words, scales, nn, rows, vr); break;
+    case 4: quant_pack_kernel<4><<<grid, ROW_THREADS, 0, s>>>(g, u, words, scales, nn, rows, vr); break;
+    default: quant_pack_kernel<8><<<grid, ROW_THREADS, 0, s>>>(g, u, words, scales, nn, rows, vr); break;
   }
   return (int)cudaGetLastError();
 }
@@ -575,16 +700,27 @@ extern "C" int wire_unpack_dequant_f32(const uint32_t* words, const float* scale
   return (int)cudaGetLastError();
 }
 
-// g (n,) f32, u (n_p,) f32 with n_p = ceil(n/block)*block -> codes (n_p,) int8,
-// scales (n_p/block,) f32; 2 <= bits <= 8
+// g (n,) f32, u (n_p,) f32 with n_p = ceil(n/block)*block < 2^31 -> codes
+// (n_p,) int8, scales (n_p/block,) f32; 2 <= bits <= 8; by the plan of
+// wire.quant_plan(n, block, g and u 16-byte and codes 4-byte aligned)
 extern "C" int quant_block_quant_f32(const float* g, const float* u, int8_t* codes,
                                       float* scales, long long n, int block, int bits,
-                                      void* stream) {
-  if (n < 1 || block < 1 || bits < 2 || bits > 8) return (int)cudaErrorInvalidValue;
-  const long long rows = (n + block - 1) / block;
-  block_quant_kernel<<<grid_for(rows, ROWS_PER_BLOCK), ROW_THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(g, u, codes, scales, n, rows,
-                                                           block, bits);
+                                      long long vec_rows, int grid, void* stream) {
+  if (!quant_plan_ok(n, block, vec_rows, grid) || bits < 2 || bits > 8 ||
+      (vec_rows > 0 && !(aligned16(g) && aligned16(u) && ((uintptr_t)codes & 3u) == 0)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned nn = (unsigned)n, bl = (unsigned)block, rows = (nn + bl - 1) / bl,
+                 vr = (unsigned)vec_rows;
+#define BLOCK_QUANT(B)                                                                  \
+  case B:                                                                               \
+    block_quant_kernel<B><<<grid, ROW_THREADS, 0, s>>>(g, u, codes, scales, nn, rows, bl, vr); \
+    break;
+  switch (bits) {
+    BLOCK_QUANT(2) BLOCK_QUANT(3) BLOCK_QUANT(4) BLOCK_QUANT(5) BLOCK_QUANT(6) BLOCK_QUANT(7)
+    BLOCK_QUANT(8)
+  }
+#undef BLOCK_QUANT
   return (int)cudaGetLastError();
 }
 

@@ -11,8 +11,11 @@ x - floor(x))`` clipped to ``[-levels, levels]`` against operand uniforms
 ``ref.block_quant_ref`` and ``ref.block_dequant_ref`` bit for bit.  The
 quantizer wire (``ops.block_quant_wire``) runs them for the widths that
 ``quant_pack``/``unpack_dequant`` do not take.  Both are single passes
-bounded by HBM bandwidth.  ``block_dequant`` walks its output in chunks of
-4 codes (one 4-byte load) by the host's plan, ``wire.dequant_plan``.
+bounded by HBM bandwidth.  ``block_quant`` shares ``quant_pack``'s row walk
+(a warp a row, lane L on the float4 chunk ``32q + L`` of g and of u in step
+q, one 4-byte store of its 4 codes) by the host's plan, ``wire.quant_plan``;
+the uniforms stay an operand.  ``block_dequant`` walks its output in chunks
+of 4 codes (one 4-byte load) by the host's plan, ``wire.dequant_plan``.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 from . import _build
 from .gradestc_encode import check_operand
 from .ref import quant_levels
-from .wire import dequant_plan
+from .wire import dequant_plan, quant_plan
 
 __all__ = ["block_quant", "block_dequant", "quant_levels", "OUT_DTYPES"]
 
@@ -41,9 +44,11 @@ def _check(block: int, bits: int) -> None:
 
 def block_quant(g: torch.Tensor, u: torch.Tensor, block: int = 512, bits: int = 8
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """g (n,) f32 and uniforms u (n_p,) f32, ``n_p = ceil(n/block)*block``,
-    on one CUDA device -> (codes int8 (n_p,), scales f32 (n_p/block,)).
-    g reads as zero past n (the reference's padding)."""
+    """g (n,) f32 and uniforms u (n_p,) f32, ``n_p = ceil(n/block)*block <
+    2**31``, on one CUDA device -> (codes int8 (n_p,), scales f32
+    (n_p/block,)).  g reads as zero past n (the reference's padding).  The
+    kernel walks ``wire.quant_plan(n, block, g and u aligned to 16 bytes and
+    the codes to 4)`` and draws nothing: the uniforms are the caller's."""
     _check(block, bits)
     check_operand("g", g, 1, g.device)
     check_operand("u", u, 1, g.device)
@@ -51,12 +56,17 @@ def block_quant(g: torch.Tensor, u: torch.Tensor, block: int = 512, bits: int = 
     rows = -(-n // block)
     if u.shape[0] != rows * block:
         raise ValueError(f"u has {u.shape[0]} values; g of {n} needs {rows * block}")
+    if rows * block >= 2 ** 31:
+        raise ValueError(f"the quantizer takes fewer than 2**31 padded values, got "
+                         f"{rows * block}")
     codes = torch.empty((rows * block,), dtype=torch.int8, device=g.device)
     scales = torch.empty((rows,), dtype=torch.float32, device=g.device)
     if n:
+        gp, up, cp = g.data_ptr(), u.data_ptr(), codes.data_ptr()
+        plan = quant_plan(n, block, gp % 16 == 0 and up % 16 == 0 and cp % 4 == 0)
         with _build.device(g):
-            _build.launch("block_quant", "quant_block_quant_f32", g.data_ptr(), u.data_ptr(),
-                          codes.data_ptr(), scales.data_ptr(), n, block, bits,
+            _build.launch("block_quant", "quant_block_quant_f32", gp, up, cp,
+                          scales.data_ptr(), n, block, bits, plan.vec_rows, plan.grid,
                           _build.stream(g))
     return codes, scales
 

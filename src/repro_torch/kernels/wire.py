@@ -24,7 +24,11 @@ sign wire runs no torch op on the card.  ``sign_unpack`` and the
 dequantizers (``unpack_dequant`` here, ``quant.block_dequant``) walk their
 output in chunks of 4 values, by a launch plan made here on the host
 (:func:`dequant_plan`) and passed to the kernel, so that the CPU tests can
-hold it.
+hold it.  The quantizers (``quant_pack`` here, ``quant.block_quant``) walk
+their input a warp a row, lane L on chunk ``32q + L`` of the row in step q
+(a float4 of g and of u), by :func:`quant_plan`; ``quant_pack`` stores
+whole words from contiguous lanes.  They take the uniforms as an operand,
+as the TPU kernels do: nothing is drawn inside a kernel.
 
 ``coeff_dequant`` (also in ``csrc/quant_wire.cu``) replaces
 ``wire.py::coeff_dequant_pallas``: ``codes * (scale * INV127)`` back to a
@@ -46,7 +50,8 @@ from . import _build, ref
 from .gradestc_encode import check_operand
 
 __all__ = ["coeff_quant", "coeff_dequant", "sign_pack", "sign_unpack", "quant_pack",
-           "unpack_dequant", "QUANT_BITS", "DequantPlan", "dequant_plan"]
+           "unpack_dequant", "QUANT_BITS", "DequantPlan", "dequant_plan", "QuantPlan",
+           "quant_plan"]
 
 #: bit widths whose codes tile a 512-value row in whole words
 QUANT_BITS = (2, 4, 8)
@@ -54,6 +59,8 @@ QUANT_BITS = (2, 4, 8)
 DEQUANT_WIDTH = 4
 DEQUANT_THREADS = 256
 DEQUANT_UNROLL = 4
+#: the quantizers' rows per block of 256 threads (a warp a row)
+QUANT_ROWS_PER_BLOCK = 8
 
 
 class DequantPlan(NamedTuple):
@@ -82,6 +89,34 @@ def dequant_plan(n: int, block: int, aligned: bool) -> DequantPlan:
     vec = aligned and block % DEQUANT_WIDTH == 0
     return DequantPlan(chunks, n // DEQUANT_WIDTH if vec else 0,
                        -(-chunks // (DEQUANT_THREADS * DEQUANT_UNROLL)))
+
+
+class QuantPlan(NamedTuple):
+    """How a quantizer kernel (``quant_pack``, ``quant.block_quant``) walks
+    its ``rows`` rows of ``block`` values, a warp a row, ``QUANT_ROWS_PER_BLOCK``
+    rows to each block of the ``grid``.  In step q lane L takes chunk ``32q +
+    L`` of its row, values ``4 (32q + L) .. 4 (32q + L) + 3``.  Rows below
+    ``vec_rows`` take the vector path (a float4 load of g and of u per chunk;
+    block_quant's 4 codes in one 4-byte store); the others load value by
+    value, g reading 0.0 past n (block_quant storing a byte a code), and a
+    block that is not a multiple of 4 or is longer than 512 goes value by
+    value, lane L on values L, L + 32, ..."""
+    rows: int
+    vec_rows: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)
+def quant_plan(n: int, block: int, aligned: bool) -> QuantPlan:
+    """The plan of ``quant_pack`` (``block`` 512) and ``quant.block_quant``
+    for n values: every row whole below n takes the vector path when the
+    operands are ``aligned`` (g and u to 16 bytes, block_quant's codes to 4)
+    and the row is whole chunks of 4 values in registers (``block % 4 ==
+    0``, ``block <= 512``); the ragged last row and any other case take the
+    scalar path."""
+    rows = -(-n // block)
+    vec = aligned and block % 4 == 0 and block <= ref.WIRE_BLOCK
+    return QuantPlan(rows, n // block if vec else 0, -(-rows // QUANT_ROWS_PER_BLOCK))
 
 
 def _rows(n: int) -> int:
@@ -185,9 +220,11 @@ def sign_unpack(words: torch.Tensor, scale: torch.Tensor, n: int,
 
 def quant_pack(g: torch.Tensor, u: torch.Tensor, bits: int = 8
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """g (n,) f32 and uniforms u (n_p,) f32, ``n_p = ceil(n/512)*512``, on
-    one CUDA device -> (words int32 (n_p*bits/32,), scales f32 (n_p/512,)).
-    g reads as zero past n (the reference's padding); ``bits`` in {2, 4, 8}."""
+    """g (n,) f32 and uniforms u (n_p,) f32, ``n_p = ceil(n/512)*512 <
+    2**31``, on one CUDA device -> (words int32 (n_p*bits/32,), scales f32
+    (n_p/512,)).  g reads as zero past n (the reference's padding); ``bits``
+    in {2, 4, 8}.  The kernel walks ``quant_plan(n, 512, g and u aligned to
+    16 bytes)`` and draws nothing: the uniforms are the caller's."""
     _check_bits(bits)
     check_operand("g", g, 1, g.device)
     check_operand("u", u, 1, g.device)
@@ -195,13 +232,19 @@ def quant_pack(g: torch.Tensor, u: torch.Tensor, bits: int = 8
     rows = _rows(n)
     if u.shape[0] != rows * ref.WIRE_BLOCK:
         raise ValueError(f"u has {u.shape[0]} values; g of {n} needs {rows * ref.WIRE_BLOCK}")
+    if rows * ref.WIRE_BLOCK >= 2 ** 31:
+        raise ValueError(f"the quantizer takes fewer than 2**31 padded values, got "
+                         f"{rows * ref.WIRE_BLOCK}")
     words = torch.empty((rows * ref.WIRE_BLOCK * bits // 32,), dtype=torch.int32,
                         device=g.device)
     scales = torch.empty((rows,), dtype=torch.float32, device=g.device)
     if n:
+        gp, up = g.data_ptr(), u.data_ptr()
+        plan = quant_plan(n, ref.WIRE_BLOCK, gp % 16 == 0 and up % 16 == 0)
         with _build.device(g):
-            _build.launch("quant_pack", "wire_quant_pack_f32", g.data_ptr(), u.data_ptr(),
-                          words.data_ptr(), scales.data_ptr(), n, bits, _build.stream(g))
+            _build.launch("quant_pack", "wire_quant_pack_f32", gp, up, words.data_ptr(),
+                          scales.data_ptr(), n, bits, plan.vec_rows, plan.grid,
+                          _build.stream(g))
     return words, scales
 
 

@@ -12,7 +12,10 @@ encode_quant's codes equal except by one where A/scale*127 sits within
 quantizer wire kernels (sign_pack, sign_unpack, quant_pack, unpack_dequant)
 and the block quantizer (block_quant, block_dequant, also through the wire
 route of the other bit widths) bit for bit, at every flat group size of the
-TinyLlama-width slice and at ragged sizes (the sign wire also with -0.0,
+TinyLlama-width slice and at ragged sizes (quant_pack at bits 2, 4 and 8 and
+block_quant at bits 2 to 8 and blocks 512, 256, 96, 100, 30 and 1024, also
+with -0.0, subnormals, x on integers, uniforms of 0.0 and 1 - 2^-24, and a
+g or a u one float off 16-byte alignment; the sign wire also with -0.0,
 +-inf and subnormals in g, its scale against ``ref.mean_abs_ref``, from a g
 and into an output off 16-byte alignment, and ``ops.sign_wire`` running
 no torch op but its outputs' allocation); the two dequantizers also at n
@@ -336,20 +339,55 @@ def test_cuda_sign_wire_runs_no_torch_op(cuda):
         "mean_abs_kernel" in k for k in kernels), kernels
 
 
-@pytest.mark.parametrize("n,bits", [(n, 8) for n in _flat_sizes()] + [(70_001, 2), (70_001, 4),
-                                                                     (513, 2), (513, 4)])
+def _quant_flat(n, seed, bits):
+    """``_flat`` with subnormals of both signs and, past 2048 values, a
+    512-value row of max 1.0 whose values are f32(k / levels), so that most
+    x = g / scale * levels land on an integer."""
+    g = _flat(n, seed)
+    g[5::13] = np.float32(1e-40) * np.where(np.arange(len(g[5::13])) % 2, -1, 1)
+    if n >= 2048:
+        levels = tref.quant_levels(bits)
+        k = np.random.default_rng(seed).integers(-levels, levels + 1, 512)
+        g[1024:1536] = (k / np.float32(levels)).astype(np.float32)
+        g[1024] = 1.0
+    return g
+
+
+def _uniform_specials(u):
+    """A copy of the uniforms with exact 0.0 and 1 - 2^-24, the largest."""
+    u = u.clone()
+    u[::5] = 0.0
+    u[1::5] = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+    return u
+
+
+QUANT_SIZES = sorted(set(_flat_sizes()) | {1, 31, 33, 511, 513, 70_001})
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("n", QUANT_SIZES)
 def test_cuda_quant_wire_bit_exact(cuda, n, bits):
-    g = torch.from_numpy(_flat(n, seed=n + bits)).to(cuda)
+    """quant_pack's words and scales bit for bit, on the vector path and,
+    with g or u one float off 16-byte alignment, the scalar one; g with
+    -0.0, subnormals, a zero row and x on integers, u with 0.0 and 1 -
+    2^-24; then unpack_dequant and the dispatchers."""
+    g = torch.from_numpy(_quant_flat(n, n + bits, bits)).to(cuda)
     n_p = n + (-n) % 512
     u = prng.uniform(prng.PRNGKey(n, cuda), (n_p,))
+    us = _uniform_specials(u)
+    gp = torch.nn.functional.pad(g, (0, n_p - n))
     before = ops.launch_counts()
     words, scales = wire.quant_pack(g, u, bits)
-    rw, rs = tref.quant_pack_ref(torch.nn.functional.pad(g, (0, n_p - n)), u, 512, bits)
+    rw, rs = tref.quant_pack_ref(gp, u, 512, bits)
     assert torch.equal(_u32(words), rw) and _same_bits(scales, rs)
+    sw, ss = tref.quant_pack_ref(gp, us, 512, bits)
+    for gm, um in ((g, us), (_offset(g, True), us), (g, _offset(us, True))):
+        mw, ms = wire.quant_pack(gm, um, bits)
+        assert torch.equal(_u32(mw), sw) and _same_bits(ms, ss)
     out = wire.unpack_dequant(words, scales, n, bits)
     assert _same_bits(out, tref.unpack_dequant_ref(rw, rs, n_p, 512, bits)[:n])
     after = ops.launch_counts()
-    assert after["quant_pack"] == before["quant_pack"] + 1
+    assert after["quant_pack"] == before["quant_pack"] + 4
     assert after["unpack_dequant"] == before["unpack_dequant"] + 1
     # the dispatchers draw the same uniforms from the same key, on the card
     key = prng.PRNGKey(n, cuda)
@@ -393,31 +431,44 @@ def test_cuda_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         ops.quantize_update(g, key, use_pallas=False)       # no plain path on the card
 
 
+@pytest.mark.parametrize("block", [512, 256, 96, 100, 30, 1024])
 @pytest.mark.parametrize("n", [1, 513, 70_001, 2_883_584])
-@pytest.mark.parametrize("bits,block", [(3, 512), (5, 512), (6, 512), (7, 512), (6, 256),
-                                        (8, 96)])
-def test_cuda_block_quant_bit_exact(cuda, n, bits, block):
-    g = torch.from_numpy(_flat(n, seed=n + bits)).to(cuda)
+def test_cuda_block_quant_bit_exact(cuda, n, block):
+    """bits 2 to 8: codes and scales bit for bit on the vector path and,
+    with g or u one float off 16-byte alignment, the scalar one (blocks of
+    whole chunks in registers, 1024 and 30 value by value); g and
+    u as in ``test_cuda_quant_wire_bit_exact``; then block_dequant and, at 6
+    bits, the dispatchers on the card and the CPU."""
     pad = (-n) % block
     u = prng.uniform(prng.PRNGKey(n, cuda), (n + pad,))
-    before = ops.launch_counts()
-    codes, scales = quant.block_quant(g, u, block, bits)
-    rc, rs = tref.block_quant_ref(torch.nn.functional.pad(g, (0, pad)), u, block, bits)
-    assert torch.equal(codes, rc) and _same_bits(scales, rs)
-    out = quant.block_dequant(codes, scales, n, block, bits)
-    assert _same_bits(out, tref.block_dequant_ref(rc, rs, block, bits)[:n])
-    half = quant.block_dequant(codes, scales, n, block, bits, torch.bfloat16)
-    assert torch.equal(half, out.to(torch.bfloat16))
-    after = ops.launch_counts()
-    assert after["block_quant"] == before["block_quant"] + 1
-    assert after["block_dequant"] == before["block_dequant"] + 2
-    # the dispatchers: the same uniforms from the same key, and the CPU's result
-    key = prng.PRNGKey(n, cuda)
-    c2, s2, pad2 = ops.block_quantize(g, key, block=block, bits=bits)
-    assert pad2 == pad and torch.equal(c2, codes) and _same_bits(s2, scales)
-    cc, cs, _ = ops.block_quantize(g.cpu(), prng.PRNGKey(n, "cpu"), block=block, bits=bits)
-    assert torch.equal(cc, codes.cpu()) and _same_bits(cs, scales.cpu())
-    assert _same_bits(ops.block_dequantize(codes, scales, pad, block=block, bits=bits), out)
+    us = _uniform_specials(u)
+    for bits in range(2, 9):
+        g = torch.from_numpy(_quant_flat(n, n + bits, bits)).to(cuda)
+        gp = torch.nn.functional.pad(g, (0, pad))
+        before = ops.launch_counts()
+        codes, scales = quant.block_quant(g, u, block, bits)
+        rc, rs = tref.block_quant_ref(gp, u, block, bits)
+        assert torch.equal(codes, rc) and _same_bits(scales, rs), bits
+        sc, ss = tref.block_quant_ref(gp, us, block, bits)
+        for gm, um in ((g, us), (_offset(g, True), us), (g, _offset(us, True))):
+            mc, ms = quant.block_quant(gm, um, block, bits)
+            assert torch.equal(mc, sc) and _same_bits(ms, ss), bits
+        out = quant.block_dequant(codes, scales, n, block, bits)
+        assert _same_bits(out, tref.block_dequant_ref(rc, rs, block, bits)[:n])
+        half = quant.block_dequant(codes, scales, n, block, bits, torch.bfloat16)
+        assert torch.equal(half, out.to(torch.bfloat16))
+        after = ops.launch_counts()
+        assert after["block_quant"] == before["block_quant"] + 4
+        assert after["block_dequant"] == before["block_dequant"] + 2
+        if bits != 6:
+            continue
+        # the dispatchers: the same uniforms from the same key, and the CPU's result
+        key = prng.PRNGKey(n, cuda)
+        c2, s2, pad2 = ops.block_quantize(g, key, block=block, bits=bits)
+        assert pad2 == pad and torch.equal(c2, codes) and _same_bits(s2, scales)
+        cc, cs, _ = ops.block_quantize(g.cpu(), prng.PRNGKey(n, "cpu"), block=block, bits=bits)
+        assert torch.equal(cc, codes.cpu()) and _same_bits(cs, scales.cpu())
+        assert _same_bits(ops.block_dequantize(codes, scales, pad, block=block, bits=bits), out)
 
 
 #: the dequantizers' sizes: every chunk remainder, both sides of a row, a
