@@ -37,9 +37,13 @@ script exits non-zero:
    per call and by CUDA kernel with launches, and the device time of the
    6-bit wire's integer pack and unpack (``phase_quant_wire``);
    unpack_dequant and block_dequant also back-to-back with their host time
-   per call, summed per TinyLlama client-round; coeff_dequant bit for bit at the
-   SVDFed-int8 group shapes, and decode(M, coeff_dequant(codes, scales))
-   against decode_wire(M, codes, scales); flash_attention at TinyLlama's
+   per call, summed per TinyLlama client-round; coeff_quant also on A with
+   +-0 every seventh value and from an A off alignment, and coeff_dequant,
+   bit for bit at the SVDFed-int8 group shapes, and decode(M,
+   coeff_dequant(codes, scales)) against decode_wire(M, codes, scales); both
+   back-to-back with their host time per call and by CUDA kernel on A =
+   M^T G, on A with +-0 every seventh value and on A = 0, summed per
+   TinyLlama client-round (``coeff_wire_times``); flash_attention at TinyLlama's
    eval shape (causal; also non-causal, and with bf16 inputs) and at
    Gemma3-1B's (window 512 and window 0), within rtol = atol = 1e-4 in f32
    and 5e-2 in bf16; CUDA-event times (median of 20 after warm-up) of the
@@ -67,7 +71,8 @@ script exits non-zero:
    memory; every host sync of each run (torch's sync debug mode), by the
    port's source line that made it: only ``host_fetch`` (one per round and
    per eval) and cuSOLVER's error checks in ``core/rsvd.py`` (gradestc and
-   svdfed) may sync;
+   svdfed) may sync; and how many of the coefficients that gradestc-int8's
+   wire quantizes are exactly +-0;
 5. card vs CPU: a small config through the port on both, for every method
    and wire of phase 4 (the CPU side with ``use_pallas=True``, the card's
    block-local quantizer wire), and gradestc on Gemma3-1B's reduced config
@@ -76,12 +81,18 @@ script exits non-zero:
    fedqclip).  The card's eval forward runs the flash kernel, the CPU's the
    plain attention.
 
+``python3 chip_smoke.py --turn TREE`` runs phase 1 and then only
+``coeff_wire_times``, on the port under ``TREE/src`` (``.``, or a parent
+commit unpacked by ``git archive`` into ``build/parent``), so that two trees
+are timed alike in turns within one call; it prints no summary lines.
+
 ``python3 chip_smoke.py --profile [METHOD]`` adds, after phase 4, a run of
 METHOD (gradestc unless named; any method of phase 4) whose round 1 is
 traced by ``torch.profiler``: the device idle share of that
 round and the top ops and kernels by device time; before it, the device
-time of each CUDA kernel that one encode, encode_quant, decode and
-decode_wire call launch, per TinyLlama group shape and per client-round,
+time of each CUDA kernel that one encode, encode_quant, decode,
+decode_wire, coeff_quant and coeff_dequant call launch, per TinyLlama group
+shape and per client-round,
 of unpack_dequant and block_dequant per flat group size and per
 client-round, and of flash's main and combine kernels per call at each f32
 causal shape.
@@ -95,6 +106,7 @@ result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -233,6 +245,42 @@ class SyncCounter:
                 site = f"{Path(fr.filename).resolve().relative_to(src)}:{fr.lineno}"
                 break
         self.sites[site] += 1
+
+
+class CoeffZeros:
+    """Counts, inside the ``with`` block, the exact zeros of each A_new that
+    ``ops.coeff_roundtrip`` hands the int8 wire (``ops.coeff_quant``, which
+    it looks up at each call).  Each call's count is copied without a wait
+    into pinned host memory made here, so the run gets no host sync, no
+    launch of the port's kernels and no device tensor that outlives the
+    call (its peak memory stays the port's); read it after a sync."""
+
+    def __init__(self, max_calls: int = 1024):
+        self.calls, self.values = 0, 0
+        self._counts = torch.zeros(max_calls, dtype=torch.int64, pin_memory=True)
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self._real = ops.coeff_quant
+
+        def counting(A):
+            self._counts[self.calls].copy_((A == 0).sum(), non_blocking=True)
+            self.calls += 1
+            self.values += A.numel()
+            return self._real(A)
+
+        ops.coeff_quant = counting
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+
+        ops.coeff_quant = self._real
+        return False
+
+    def zeros(self) -> int:
+        return int(self._counts[:self.calls].sum())
 
 
 def bound_ms(nbytes: float, flops: float, tf32_flops: float = 0.0):
@@ -488,15 +536,20 @@ def phase_wire_kernels(shapes, group_counts):
         M, G = random_basis(shape, gen)
         A = torch.matmul(M.mT, G)
         gn = float(G.norm())
-        # coeff_quant: bit for bit, and an all-zero A (scale 1e-12, codes 0)
+        # coeff_quant: bit for bit, also on A with +-0 every seventh value and
+        # from an A one float off 16-byte alignment (its scalar path), and
+        # an all-zero A (scale 1e-12, codes 0)
         q, rq = wire.coeff_quant(A), ref.coeff_quant_ref(A)
         z = wire.coeff_quant(torch.zeros_like(A))
+        more = {"zeros 1/7": coeff_inputs(A)["A with +-0 every 7th"],
+                "offset": offset_copy(A.reshape(-1)).view(A.shape)}
+        more_ok = {label: [wire.coeff_quant(X), ref.coeff_quant_ref(X)]
+                   for label, X in more.items()}
         # encode_quant / decode_wire
         codes, scales, ship, flips, rel, zero_ok, eq_err = check_encode_quant(shape, M, G, A)
         Ghat = gradestc_decode.decode_wire(M, codes, scales)
         torch.cuda.synchronize()
-        cq_exact = (torch.equal(q[0], rq[0]) and torch.equal(q[1].view(torch.int32), rq[1].view(torch.int32))
-                    and torch.equal(q[2].view(torch.int32), rq[2].view(torch.int32)))
+        cq_exact = all(same_wire(a, b) for a, b in [(q, rq), *more_ok.values()])
         zero_ok = zero_ok and not bool(z[0].any()) and bool((z[1] == 1e-12).all())
         Ghat_ref = ref.decode_ref(M, ship)        # the plain version on the same codes
         rel["Ghat"] = float((Ghat - Ghat_ref).norm()) / gn
@@ -507,7 +560,8 @@ def phase_wire_kernels(shapes, group_counts):
                                   float((q[0].int() - rq[0].int()).abs().max())),
                "encode_quant": eq_err,
                "decode_wire": float((Ghat - Ghat_ref).abs().max())}
-        log("kernels", f"L={L} l={l} m={m} k={k} coeff_quant bit-exact={cq_exact} "
+        log("kernels", f"L={L} l={l} m={m} k={k} coeff_quant bit-exact={cq_exact} (also on A "
+                       f"with +-0 every 7th and from an A off alignment) "
                        f"encode_quant code flips {flips} of {codes.numel()} rel_err E={rel['E']:.3e} "
                        f"scales={rel['scales']:.3e} A bits differing from cuBLAS {rel['A_bits']} "
                        f"decode_wire rel_err Ghat={rel['Ghat']:.3e} "
@@ -549,7 +603,15 @@ def phase_wire_kernels(shapes, group_counts):
             row["plain_ms"] += w * plain
             row["library_ms"] = None if lib is None else row["library_ms"] + w * lib
             row["bound_ms"] += w * bms
+    tot["coeff_quant"].update(coeff_wire_times("coeff_quant", group_counts))
     return tot, bound_by
+
+
+def same_wire(got, want):
+    """coeff_quant's (codes, scales, ship) equal bit for bit."""
+    return (torch.equal(got[0], want[0]) and torch.equal(got[1].view(torch.int32),
+                                                         want[1].view(torch.int32))
+            and torch.equal(got[2].view(torch.int32), want[2].view(torch.int32)))
 
 
 def phase_encode_gemma(shapes, group_counts):
@@ -891,6 +953,107 @@ def phase_quant_wire(flat_counts):
     return _device_rows(rows, dev, kernels)
 
 
+#: the coefficient wire's inputs at each group shape: A = M^T G, the same A
+#: with every seventh value +-0 (a zero column of G gives a zero column of
+#: A), and A = 0 (SVDFed's round 0: its shared basis starts at zero)
+COEFF_INPUTS = ("A", "A with +-0 every 7th", "A = 0")
+
+
+def coeff_inputs(A):
+    """{label of COEFF_INPUTS: coefficients} built from A."""
+    z = A.clone()
+    flat = z.view(-1)
+    flat[::14] = 0.0
+    flat[7::14] = -0.0
+    return dict(zip(COEFF_INPUTS, (A, z, torch.zeros_like(A))))
+
+
+def coeff_wire_times(name, group_counts, seed: int = 9):
+    """coeff_quant (``wire.coeff_quant(A)``) or coeff_dequant
+    (``wire.coeff_dequant(codes, scales)`` of coeff_quant's codes) at each
+    TinyLlama group shape (L, l, m, k), on the three inputs of
+    ``coeff_inputs``: back-to-back with the host time per call
+    (``log_b2b_alone``) beside the bound (coeff_quant: A read, codes, scales
+    and ship written, 9 bytes a coefficient; coeff_dequant: codes and
+    scales read, 4 bytes written), and the device time by CUDA kernel with
+    launches per call (``profile_device_us``), each summed over one client's
+    round (group_counts[shape] calls: gradestc-int8's, and one a group for
+    coeff_dequant, which no path calls).  It uses only the wrappers'
+    signatures, so it times a parent tree the same way.  Returns the JSON
+    row's numbers: b2b_ms, host_us and device_us per client-round on A =
+    M^T G, ``device_us_by_input`` for all three, and the smallest call's
+    device us (``min_call_us``)."""
+    from repro_torch.kernels import wire
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    row, dev = {}, collections.defaultdict(float)
+    bound, min_call, calls = 0.0, math.inf, 0
+    for shape in sorted(group_counts):
+        L, l, m, k = shape
+        w = group_counts[shape]
+        calls += w
+        M, G = random_basis(shape, gen)
+        n_coef, n_scale = L * k * m, L * k * -(-m // 512)
+        for label, X in coeff_inputs(torch.matmul(M.mT, G)).items():
+            if name == "coeff_quant":
+                def fn(X=X):
+                    return wire.coeff_quant(X)
+                bms = bound_ms(9 * n_coef + 4 * n_scale, 5 * n_coef)[0]
+            else:
+                codes, scales, _ = wire.coeff_quant(X)
+
+                def fn(codes=codes, scales=scales):
+                    return wire.coeff_dequant(codes, scales)
+                bms = bound_ms(5 * n_coef + 4 * n_scale, 2 * n_coef)[0]
+            log_b2b_alone(f"{name} {label} L={L} k={k} m={m} (x{w} a client-round)", fn, w,
+                          row if label == "A" else {}, bms)
+            for _ in range(3):           # the profiler now and then reports no kernel
+                counts = {}
+                us = profile_device_us(fn, reps=20, launches=counts)
+                if us:
+                    break
+            else:
+                raise AssertionError(f"{name} {label} at {shape}: the profiler saw no kernel")
+            for kernel, t in us.items():
+                log("profile", f"{name} {label} L={L} k={k} m={m}: {kernel} {t:.2f} us/call, "
+                               f"{counts[kernel]:g} launches/call")
+            call_us = sum(us.values())
+            dev[label] += w * call_us
+            min_call = min(min_call, call_us)
+            if label == "A":
+                bound += w * bms
+    row.update(device_us=dev["A"], device_us_by_input=dict(dev), min_call_us=min_call)
+    floor_us = calls * min_call
+    log("kernels", f"tinyllama {name} device us per client-round ({calls} calls): "
+        + ", ".join(f"{label} {us:.2f}" for label, us in dev.items())
+        + f"; bound {1e3 * bound:.2f} us; smallest call {min_call:.2f} us, so {calls} launches "
+          f"take at least {floor_us:.2f} us, {1e3 * bound / floor_us:.1%} of the bound at most")
+    return row
+
+
+def turn(tree: str) -> None:
+    """``--turn TREE``: only ``coeff_wire_times`` for coeff_quant and
+    coeff_dequant, on the port under ``TREE/src`` (``.`` for this checkout;
+    a parent commit unpacked by ``git archive`` into a directory that
+    .gitignore lists, such as ``build/parent``), so that two trees are timed
+    alike, in turns, within one call."""
+    sys.path.insert(0, str((ROOT / tree / "src").resolve()))
+    import repro_torch
+    from repro_torch.core.policy import make_policy
+    from repro_torch.kernels import _build
+    from repro_torch.models import model
+
+    log("turn", f"tree {tree}: repro_torch from {repro_torch.__file__}")
+    t0 = time.perf_counter()
+    _build.load()
+    log("turn", f"built in {time.perf_counter() - t0:.1f} s into {_build.last_build['dir']}")
+    policy = make_policy(model.param_group_shapes(slice_arch()), min_params=4096)
+    counts = collections.Counter((p.stack, p.l, p.m, p.k) for p in policy.plans.values()
+                                 if p.compress)
+    for name in ("coeff_quant", "coeff_dequant"):
+        coeff_wire_times(name, counts)
+
+
 def flat_group_counts(arch):
     """{flat group size: groups of that size} of ``arch``'s parameters."""
     from repro_torch.core.policy import make_policy
@@ -1050,6 +1213,7 @@ def phase_coeff_dequant(shapes, group_counts):
         row["ms"] += w * ms
         row["plain_ms"] += w * plain
         row["bound_ms"] += w * bms
+    row.update(coeff_wire_times("coeff_dequant", group_counts))
     return row, by
 
 
@@ -1246,10 +1410,11 @@ def profile_device_us(fn, reps: int = 10, launches=None):
 
 def profile_kernels(group_counts, flat_counts) -> None:
     """``--profile``: the device time of each CUDA kernel that one call of
-    encode, encode_quant, decode and decode_wire launches, per TinyLlama
-    group shape and summed over one client's round (group_counts[shape]
-    calls); of unpack_dequant (8 bits) and block_dequant (6 bits) per flat
-    group size and summed the same way (flat_counts[n] calls); and of
+    encode, encode_quant, decode, decode_wire, coeff_quant and coeff_dequant
+    launches, per TinyLlama group shape and summed over one client's round
+    (group_counts[shape] calls); of unpack_dequant (8 bits) and
+    block_dequant (6 bits) per flat group size and summed the same way
+    (flat_counts[n] calls); and of
     flash's main and combine kernels per call at each f32 causal shape of
     phase 3."""
     from repro_torch.core import prng
@@ -1265,7 +1430,9 @@ def profile_kernels(group_counts, flat_counts) -> None:
         for name, fn in (("encode", lambda: gradestc_encode.encode(M, G)),
                          ("encode_quant", lambda: gradestc_encode.encode_quant(M, G)),
                          ("decode", lambda: gradestc_decode.decode(M, A)),
-                         ("decode_wire", lambda: gradestc_decode.decode_wire(M, codes, scales))):
+                         ("decode_wire", lambda: gradestc_decode.decode_wire(M, codes, scales)),
+                         ("coeff_quant", lambda: wire.coeff_quant(A)),
+                         ("coeff_dequant", lambda: wire.coeff_dequant(codes, scales))):
             for kernel, us in profile_device_us(fn).items():
                 log("profile", f"{name} L={shape[0]} l={shape[1]} m={shape[2]} k={shape[3]}: "
                                f"{kernel} {us:.1f} us/call")
@@ -1299,6 +1466,7 @@ def profile_kernels(group_counts, flat_counts) -> None:
 
 def main() -> int:
     args = sys.argv[1:]
+    turn_tree = args[args.index("--turn") + 1] if "--turn" in args else None
     profile_run = "--profile" in args
     profile_method = (args[args.index("--profile") + 1]
                       if profile_run and args.index("--profile") + 1 < len(args) else "gradestc")
@@ -1311,6 +1479,9 @@ def main() -> int:
     log("device", smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if turn_tree is not None:
+        turn(turn_tree)
+        return 0
     log("device", f"torch {torch.__version__} cuda {torch.version.cuda} "
                   f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
                   f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
@@ -1408,12 +1579,17 @@ def main() -> int:
                                      f"{len(flash_seen)} evals, expected "
                                      f"{flash_per_eval * len(flash_seen)}")
 
+        zeros = CoeffZeros() if label == "gradestc-int8" else contextlib.nullcontext()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         metrics.reset_host_sync_count()
-        with SyncCounter() as syncs:
+        with SyncCounter() as syncs, zeros:
             res = run_slice(method, a, "cuda", progress=after_eval, method_kw=mkw, **rkw)
             torch.cuda.synchronize()
+        if label == "gradestc-int8":
+            log("slice", f"{label}: coeff_quant saw {zeros.calls} A_new, {zeros.zeros()} of "
+                         f"{zeros.values} coefficients exactly +-0 "
+                         f"({zeros.zeros() / zeros.values:.3e})")
         launches[label] = ops.launch_counts()
         runs[label] = res
         check_syncs(label, method, syncs.sites, metrics.host_sync_count(),
@@ -1525,7 +1701,8 @@ def main() -> int:
         }
         if run is None:
             row["path"] = "kernel phase only"
-        for key in ("b2b_ms", "b2b_library_ms", "host_us", "device_us", "at"):
+        for key in ("b2b_ms", "b2b_library_ms", "host_us", "device_us", "device_us_by_input",
+                    "min_call_us", "at"):
             if key in t:
                 row[key] = t[key]
         if name == "flash_attention":

@@ -44,7 +44,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "gradestc_encode_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gradestc_decode_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "gradestc_coeff_quant_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "gradestc_coeff_quant_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gradestc_encode_quant_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gradestc_decode_wire_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "wire_sign_pack_f32": [_P, _P, _P, _P, _L, _F, _P],
@@ -53,7 +53,7 @@ _SIGNATURES = {
     "wire_unpack_dequant_f32": [_P, _P, _P, _L, _I, _L, _I, _P],
     "quant_block_quant_f32": [_P, _P, _P, _P, _L, _I, _I, _L, _I, _P],
     "quant_block_dequant": [_P, _P, _P, _L, _I, _I, _I, _L, _I, _P],
-    "wire_coeff_dequant_f32": [_P, _P, _P, _L, _I, _P],
+    "wire_coeff_dequant_f32": [_P, _P, _P, _L, _I, _L, _I, _P],
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
                             _I, _P],
 }

@@ -24,7 +24,8 @@
 // block_dequant:  codes (n_p,) int8, scales -> code * (scale * f32(1/levels)),
 //                 the first n values, in f32, bf16 or f16 (rounded once)
 // coeff_dequant:  codes (L, k, m) int8, scales (L, k, ceil(m/512)) ->
-//                 code * (scale * INV127), (L, k, m) f32
+//                 code * (scale * INV127), (L, k, m) f32, the scale of
+//                 each value's (row, 512-column block)
 //
 // Words are uint32 in the canonical layout (code i -> word i / cpw, shift
 // (i % cpw) * bits, cpw = 32 / bits); bits is 2, 4 or 8 for quant_pack and
@@ -91,9 +92,20 @@
 //     apart, every load in flight before its stores; the scale is loaded
 //     once a thread.  It walks wire.dequant_plan(n, 512, out aligned); the
 //     ragged tail and an unaligned out take the scalar path.
-//   coeff_dequant: one thread per output value; the scale is read through
-//     the L1 by the threads that share it.  It masks the ragged last
-//     512-column block of each row by writing only the m columns that exist.
+//   coeff_dequant (redesigned for the H100): the dequantizers' chunk of 4
+//     values (one 4-byte load of codes, one scale, one 16-byte streaming
+//     store; lane L on chunk base + L, 512 contiguous bytes a warp store)
+//     over the L k m values as one vector, but a chunk a thread, 256
+//     threads a block (wire.coeff_dequant_plan): its calls are 65,536 to
+//     360,448 values, where the SMs a call reaches and the longest chain of
+//     one thread set the time, not the bytes.  4 chunks a thread left most
+//     SMs idle; of blocks of 128, 256, 512 and 1,024 threads, 256 measured
+//     fastest on the H100.  A chunk's row is c / (m / 4), one 32-bit
+//     division per 4 values, and its scale that of 512-column block (c % (m
+//     / 4)) / 128, read through the L1 by the chunks that share it; a chunk
+//     never straddles two blocks, since m % 4 == 0 on the vector path.  A
+//     row whose m is not a multiple of 4, and unaligned operands, take the
+//     scalar path, which steps the row where a chunk crosses into the next.
 //   unpack_dequant, block_dequant (redesigned for the H100): they write 4
 //     bytes per value (2 in bf16 or f16) and read 1/4 to 1, so the stores
 //     bound them.  One thread per value, each reloading its row's scale and
@@ -159,7 +171,6 @@ namespace {
 constexpr int ROW = 512;           // values per wire row (ref.WIRE_BLOCK)
 constexpr int ROW_THREADS = 256;   // 8 warps, one row each (wire.QUANT_ROWS_PER_BLOCK rows)
 constexpr int ROWS_PER_BLOCK = ROW_THREADS / 32;
-constexpr int ELEM_THREADS = 256;
 // the dequantizers: a chunk of 4 values a thread-step, DQ_UNROLL chunks a
 // thread, 256 apart, so a warp's loads and 16-byte stores are contiguous
 // (wire.DEQUANT_THREADS and DEQUANT_UNROLL on the host)
@@ -167,6 +178,8 @@ constexpr int DQ_UNROLL = 4;
 constexpr int DQ_THREADS = 256;
 constexpr int DQ_WIDTH = 4;
 constexpr int DQ_TILE = DQ_THREADS * DQ_UNROLL;   // chunks a block
+// coeff_dequant: a chunk a thread (wire.COEFF_DEQUANT_THREADS on the host)
+constexpr int CDQ_THREADS = 256;
 // the mean-|g| scale's finish: one block, tiles of 4 row sums a thread,
 // MA_UNROLL tiles loaded at once, at most 2^22 rows (n < 2^31) in 1024 tiles
 constexpr int MA_THREADS = 1024;
@@ -597,14 +610,37 @@ block_dequant_kernel(const int8_t* __restrict__ codes, const float* __restrict__
   }
 }
 
-__global__ void __launch_bounds__(ELEM_THREADS)
+// a chunk of 4 values a thread over the n = rows m values of a (rows, m)
+// matrix; on the vector path (m % 4 == 0) a chunk lies in one row and one
+// 512-column block: row c / (m / 4), block (c % (m / 4)) / 128
+__global__ void __launch_bounds__(CDQ_THREADS)
 coeff_dequant_kernel(const int8_t* __restrict__ codes, const float* __restrict__ scales,
-                     float* __restrict__ out, long long total, int m, int nb) {
-  const long long i = (long long)blockIdx.x * ELEM_THREADS + threadIdx.x;
-  if (i >= total) return;
-  const long long row = i / m;
-  const int col = (int)(i - row * m);
-  out[i] = __fmul_rn((float)codes[i], __fmul_rn(scales[row * nb + col / ROW], INV127));
+                     float* __restrict__ out, unsigned n, unsigned m, unsigned nb,
+                     unsigned vec_chunks) {
+  constexpr unsigned CPB = ROW / DQ_WIDTH;   // chunks a 512-column block
+  const unsigned c = blockIdx.x * CDQ_THREADS + threadIdx.x;
+  if (c < vec_chunks) {
+    const unsigned cpr = m / DQ_WIDTH, row = c / cpr;
+    const int q = reinterpret_cast<const int*>(codes)[c];
+    const float s = __fmul_rn(scales[row * nb + (c - row * cpr) / CPB], INV127);
+    float v[DQ_WIDTH];
+#pragma unroll
+    for (int j = 0; j < DQ_WIDTH; ++j) v[j] = __fmul_rn((float)(int8_t)(q >> (8 * j)), s);
+    store4(out + c * DQ_WIDTH, v);
+  } else if (c * DQ_WIDTH < n) {
+    // a row whose m is not a multiple of 4, or unaligned operands: value by
+    // value, the row found once and stepped where the chunk crosses into
+    // the next
+    const unsigned i0 = c * DQ_WIDTH, end = min(i0 + DQ_WIDTH, n);
+    unsigned row = i0 / m, col = i0 - row * m;
+    for (unsigned i = i0; i < end; ++i, ++col) {
+      if (col == m) {
+        col = 0;
+        ++row;
+      }
+      out[i] = __fmul_rn((float)codes[i], __fmul_rn(scales[row * nb + col / ROW], INV127));
+    }
+  }
 }
 
 inline unsigned grid_for(long long items, int per_block) {
@@ -620,6 +656,13 @@ inline bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 inline bool dequant_plan_ok(long long n, long long vec_chunks, int grid) {
   return n >= 1 && n <= 0x7fffffffLL && vec_chunks >= 0 && vec_chunks <= n / DQ_WIDTH &&
          grid >= 1 && (unsigned)grid == grid_for((n + DQ_WIDTH - 1) / DQ_WIDTH, DQ_TILE);
+}
+
+// coeff_dequant's plan (wire.coeff_dequant_plan): as the dequantizers', but
+// grid blocks of CDQ_THREADS chunks, a chunk a thread
+inline bool coeff_dequant_plan_ok(long long n, long long vec_chunks, int grid) {
+  return n >= 1 && n <= 0x7fffffffLL && vec_chunks >= 0 && vec_chunks <= n / DQ_WIDTH &&
+         grid >= 1 && (unsigned)grid == grid_for((n + DQ_WIDTH - 1) / DQ_WIDTH, CDQ_THREADS);
 }
 
 // the quantizers' plan (wire.quant_plan): n values in rows of `block`, n_p =
@@ -748,13 +791,18 @@ extern "C" int quant_block_dequant(const int8_t* codes, const float* scales, voi
   return (int)cudaGetLastError();
 }
 
-// codes (L, k, m) int8, scales (L, k, ceil(m/512)) f32 -> out (L, k, m) f32
+// codes (L, k, m) int8, scales (L, k, ceil(m/512)) f32 -> out (L, k, m) f32:
+// rows = L k rows of m values, n = rows m < 2^31, by the plan of
+// wire.coeff_dequant_plan(n, m, codes 4-byte and out 16-byte aligned)
 extern "C" int wire_coeff_dequant_f32(const int8_t* codes, const float* scales, float* out,
-                                       long long rows, int m, void* stream) {
-  if (rows < 1 || m < 1) return (int)cudaErrorInvalidValue;
-  const long long total = rows * m;
-  coeff_dequant_kernel<<<grid_for(total, ELEM_THREADS), ELEM_THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(codes, scales, out, total, m,
-                                                              (m + ROW - 1) / ROW);
+                                       long long rows, int m, long long vec_chunks, int grid,
+                                       void* stream) {
+  if (rows < 1 || m < 1 || rows > 0x7fffffffLL / m ||
+      !coeff_dequant_plan_ok(rows * m, vec_chunks, grid) ||
+      (vec_chunks > 0 && !(m % DQ_WIDTH == 0 && ((uintptr_t)codes & 3u) == 0 && aligned16(out))))
+    return (int)cudaErrorInvalidValue;
+  coeff_dequant_kernel<<<grid, CDQ_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      codes, scales, out, (unsigned)(rows * m), (unsigned)m, (unsigned)((m + ROW - 1) / ROW),
+      (unsigned)vec_chunks);
   return (int)cudaGetLastError();
 }

@@ -111,6 +111,8 @@ def encode_quant(M: torch.Tensor, G: torch.Tensor
     E = torch.empty_like(G)
     if L * l * m == 0:
         return codes, scales, E
+    if L * k * m >= 2 ** 31:
+        raise ValueError(f"the int8 wire takes fewer than 2**31 coefficients, got {L * k * m}")
     A, ship = torch.empty((2, L, k, m), dtype=torch.float32, device=G.device)   # one scratch
     with _build.device(G):
         _build.launch("encode_quant", "gradestc_encode_quant_f32", M.data_ptr(), G.data_ptr(),

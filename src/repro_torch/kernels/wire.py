@@ -3,13 +3,19 @@
 ``coeff_quant``: the deterministic int8 coefficient wire.  Replaces
 ``src/repro/kernels/wire.py::coeff_quant_pallas`` (GradESTC's
 ``wire_dtype="int8"``, reached through ``ops.coeff_roundtrip`` after basis
-replacement).  Per (row, 512-column block) of a coefficient matrix:
+replacement; its body is also step 2 of ``gradestc_encode.encode_quant``,
+SVDFed's int8 wire).  Per (row, 512-column block) of a coefficient matrix:
 ``scale = max(max|a|, 1e-12)``, ``codes = clip(rint(a / scale * 127),
 -127, 127)`` and the shipped value ``codes * (scale * INV127)``.  The
-kernel (``csrc/gradestc.cu``) takes a leading stack axis and masks the
-ragged last block, and equals its plain version ``ref.coeff_quant_ref`` bit
-for bit.  It moves 9 bytes per coefficient, so HBM bounds it; at the
-slice's sizes (~4 us of traffic) the call's host-side cost dominates.
+kernel (``csrc/gradestc.cu``) takes a leading stack axis and equals its
+plain version ``ref.coeff_quant_ref`` bit for bit.  It gives 128 threads to
+each (row, block), thread t on the float4 chunk t, two rows a block, by a
+launch plan made here (:func:`coeff_plan`), and makes the correctly rounded
+quotient a / scale without the IEEE division's branch to its slow path
+(which a zero dividend takes).  It moves 9 bytes per coefficient, so HBM
+bounds it, but at the slice's sizes a call is under a microsecond of
+traffic, below the card's launch floor: what counts there is how many SMs
+share the work and how long each thread's chain of dependent steps is.
 
 The quantizer wire (``csrc/quant_wire.cu``), on flat f32 vectors:
 ``sign_pack``/``sign_unpack`` replace ``wire.py::sign_pack_pallas`` and
@@ -34,9 +40,11 @@ as the TPU kernels do: nothing is drawn inside a kernel.
 ``wire.py::coeff_dequant_pallas``: ``codes * (scale * INV127)`` back to a
 ``(L, k, m)`` f32 matrix, the int8 coefficient wire's dequantization
 (``decode_wire`` fuses the same step into its GEMM).  No path of the JAX
-package calls it; ``ops.coeff_dequant`` exposes it.  Its plain version is
-``ref.coeff_dequant_ref``, and it too is exact.  Wire words are
-uint32 values, held here as the bit patterns of an int32 tensor.
+package calls it; ``ops.coeff_dequant`` exposes it.  It walks the ``L k m``
+values as one vector in chunks of 4, a chunk a thread
+(:func:`coeff_dequant_plan`), a chunk's row found by one 32-bit division.
+Its plain version is ``ref.coeff_dequant_ref``, and it too is exact.  Wire
+words are uint32 values, held here as the bit patterns of an int32 tensor.
 """
 
 from __future__ import annotations
@@ -51,7 +59,7 @@ from .gradestc_encode import check_operand
 
 __all__ = ["coeff_quant", "coeff_dequant", "sign_pack", "sign_unpack", "quant_pack",
            "unpack_dequant", "QUANT_BITS", "DequantPlan", "dequant_plan", "QuantPlan",
-           "quant_plan"]
+           "quant_plan", "CoeffPlan", "coeff_plan", "coeff_dequant_plan"]
 
 #: bit widths whose codes tile a 512-value row in whole words
 QUANT_BITS = (2, 4, 8)
@@ -61,6 +69,10 @@ DEQUANT_THREADS = 256
 DEQUANT_UNROLL = 4
 #: the quantizers' rows per block of 256 threads (a warp a row)
 QUANT_ROWS_PER_BLOCK = 8
+#: coeff_quant's rows (items of 128 threads) per block
+COEFF_ROWS_PER_BLOCK = 2
+#: coeff_dequant's threads per block, a chunk a thread
+COEFF_DEQUANT_THREADS = 256
 
 
 class DequantPlan(NamedTuple):
@@ -80,7 +92,8 @@ class DequantPlan(NamedTuple):
 @functools.lru_cache(maxsize=256)
 def dequant_plan(n: int, block: int, aligned: bool) -> DequantPlan:
     """The plan of ``unpack_dequant`` and ``sign_unpack`` (``block`` 512)
-    and ``quant.block_dequant`` for n outputs: the vector path takes every whole
+    and ``quant.block_dequant`` for n outputs (and the chunks of
+    :func:`coeff_dequant_plan`, ``block`` m): the vector path takes every whole
     chunk when the operands are ``aligned`` for its loads and store (the
     codes to 4 bytes, the output to 16) and no chunk straddles two rows
     (``block % 4 == 0``); the ragged tail and any other case take the scalar
@@ -119,6 +132,45 @@ def quant_plan(n: int, block: int, aligned: bool) -> QuantPlan:
     return QuantPlan(rows, n // block if vec else 0, -(-rows // QUANT_ROWS_PER_BLOCK))
 
 
+class CoeffPlan(NamedTuple):
+    """How ``coeff_quant`` walks ``rows`` rows of m coefficients: block (x,
+    b) of the grid (``grid`` x ``blocks``) takes the items (row
+    ``COEFF_ROWS_PER_BLOCK x + i``, 512-column block b), 128 threads each.
+    On the vector path (``vec``) thread t of an item takes chunk t, values
+    ``4t .. 4t + 3`` (a float4 of A, a 4-byte word of codes, a float4 of
+    ship), chunks past the row's m reading and storing nothing; otherwise
+    thread t takes values t, t + 128, t + 256, t + 384 of the item, one by
+    one."""
+    blocks: int
+    vec: bool
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)
+def coeff_plan(rows: int, m: int, aligned: bool) -> CoeffPlan:
+    """The plan of ``coeff_quant`` for ``rows`` rows of m: the vector path
+    where m % 4 == 0 and the operands are ``aligned`` (A and ship to 16
+    bytes, codes to 4), so that every chunk of a row starts on an aligned
+    address; the scalar path otherwise."""
+    return CoeffPlan(-(-m // ref.WIRE_BLOCK), aligned and m % 4 == 0,
+                     -(-rows // COEFF_ROWS_PER_BLOCK))
+
+
+@functools.lru_cache(maxsize=256)
+def coeff_dequant_plan(n: int, m: int, aligned: bool) -> DequantPlan:
+    """The plan of ``coeff_dequant`` for the n = L k m values of rows of m:
+    ``dequant_plan(n, m, aligned)``'s chunks and vector chunks (the codes
+    aligned to 4 bytes, the output to 16, m % 4 == 0), a chunk a thread,
+    ``COEFF_DEQUANT_THREADS`` chunks a block of the grid."""
+    plan = dequant_plan(n, m, aligned)
+    return plan._replace(grid=-(-plan.chunks // COEFF_DEQUANT_THREADS))
+
+
+def _check_coeffs(rows: int, m: int) -> None:
+    if rows * m >= 2 ** 31:
+        raise ValueError(f"the coefficient wire takes fewer than 2**31 values, got {rows * m}")
+
+
 def _rows(n: int) -> int:
     return -(-n // ref.WIRE_BLOCK)
 
@@ -129,8 +181,10 @@ def _check_bits(bits: int) -> None:
 
 
 def coeff_quant(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """A (L, k, m) f32 on a CUDA device -> (codes int8 (L, k, m), scales f32
-    (L, k, ceil(m/512)), ship f32 (L, k, m))."""
+    """A (L, k, m) f32 on a CUDA device, ``L k m < 2**31`` -> (codes int8
+    (L, k, m), scales f32 (L, k, ceil(m/512)), ship f32 (L, k, m)).  The
+    kernel walks ``coeff_plan(L k, m, A aligned to 16 bytes)`` (the outputs
+    are fresh, so aligned)."""
     check_operand("A", A, 3, A.device)
     L, k, m = A.shape
     codes = torch.empty((L, k, m), dtype=torch.int8, device=A.device)
@@ -138,16 +192,24 @@ def coeff_quant(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tens
                          device=A.device)
     ship = torch.empty_like(A)
     if L * k * m:
+        _check_coeffs(L * k, m)
+        if m > 65535 * ref.WIRE_BLOCK:             # the grid's second axis
+            raise ValueError(f"coeff_quant takes rows of at most {65535 * ref.WIRE_BLOCK}, "
+                             f"got {m}")
+        a = A.data_ptr()
+        plan = coeff_plan(L * k, m, a % 16 == 0)
         with _build.device(A):
-            _build.launch("coeff_quant", "gradestc_coeff_quant_f32", A.data_ptr(),
-                          codes.data_ptr(), scales.data_ptr(), ship.data_ptr(), L, k, m,
+            _build.launch("coeff_quant", "gradestc_coeff_quant_f32", a, codes.data_ptr(),
+                          scales.data_ptr(), ship.data_ptr(), L, k, m, plan.vec, plan.grid,
                           _build.stream(A))
     return codes, scales, ship
 
 
 def coeff_dequant(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """codes int8 (L, k, m) and scales f32 (L, k, ceil(m/512)) on one CUDA
-    device -> (L, k, m) f32, ``codes * (scale * INV127)``."""
+    device, ``L k m < 2**31`` -> (L, k, m) f32, ``codes * (scale * INV127)``.
+    The kernel walks ``coeff_dequant_plan(L k m, m, codes aligned to 4
+    bytes)`` (the output is fresh, so aligned)."""
     check_operand("codes", codes, 3, codes.device, torch.int8)
     check_operand("scales", scales, 3, codes.device)
     L, k, m = codes.shape
@@ -155,9 +217,13 @@ def coeff_dequant(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"scales {tuple(scales.shape)} do not fit codes {tuple(codes.shape)}")
     out = torch.empty((L, k, m), dtype=torch.float32, device=codes.device)
     if L * k * m:
+        _check_coeffs(L * k, m)
+        c = codes.data_ptr()
+        plan = coeff_dequant_plan(L * k * m, m, c % 4 == 0)
         with _build.device(codes):
-            _build.launch("coeff_dequant", "wire_coeff_dequant_f32", codes.data_ptr(),
-                          scales.data_ptr(), out.data_ptr(), L * k, m, _build.stream(codes))
+            _build.launch("coeff_dequant", "wire_coeff_dequant_f32", c, scales.data_ptr(),
+                          out.data_ptr(), L * k, m, plan.vec_chunks, plan.grid,
+                          _build.stream(codes))
     return out
 
 

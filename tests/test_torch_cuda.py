@@ -6,7 +6,10 @@ Tolerances: encode/decode, and encode_quant's E and decode_wire's Ghat,
 split edge, l = LC + 1, below one chunk, Gemma3-1B's MLP shape and k = 1,
 17, 33; two calls on the same inputs give the same bits; with flash, they
 also run on a second card, where the host has one); coeff_quant bit for
-bit;
+bit (also on A with +-0 every seventh value, A = 0, exact .5 ties at scales
+over 20 decades, scales above 2^100, and from an A, or into codes or ship,
+off alignment), at
+the slice's group shapes with decode_wire;
 encode_quant's codes equal except by one where A/scale*127 sits within
 1e-4 of a half-integer; M = 0 exact; PRNG draws bit for bit; the sign and
 quantizer wire kernels (sign_pack, sign_unpack, quant_pack, unpack_dequant)
@@ -51,7 +54,7 @@ import numpy as np  # noqa: E402
 from repro_torch.configs.tinyllama_1_1b import CONFIG  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import flash_attention, ops, quant, wire  # noqa: E402
+from repro_torch.kernels import _build, flash_attention, ops, quant, wire  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models import model  # noqa: E402
 
@@ -136,11 +139,56 @@ def _coeffs(L, k, m, seed=0):
             ).astype(np.float32)
 
 
-@pytest.mark.parametrize("L,k,m", [(2, 64, 2048), (2, 64, 2816), (3, 5, 700), (1, 4, 100)])
+#: the coefficient wire's shapes (L, k, m): the slice's m (2048, 2816, 512),
+#: ragged ones, and m of 1, 3 (no vector path), 513 and 1152
+COEFF_SHAPES = [(2, 64, 2048), (2, 64, 2816), (3, 5, 700), (1, 4, 100), (2, 64, 512),
+                (1, 3, 1), (2, 5, 3), (2, 64, 513), (2, 64, 1152)]
+
+
+def _zero_laden(A):
+    """A with every seventh value +-0, and A = 0 (SVDFed's round-0 operand)."""
+    z = A.clone()
+    z.view(-1)[::14] = 0.0
+    z.view(-1)[7::14] = -0.0
+    return {"zeros 1/7": z, "A = 0": torch.zeros_like(A)}
+
+
+def _ties(L, k, m, seed):
+    """Coefficients whose a / scale * 127, each step rounded to f32, is an
+    exact .5 tie (those that are not are zeroed), at a scale per 512-column
+    block over 20 decades, each block opened by +-scale: a quotient off by
+    an ulp moves a tie's code."""
+    rng = np.random.default_rng(seed)
+    nb = -(-m // 512)
+    s = np.repeat((10.0 ** rng.uniform(-11, 9, (L, k, nb))).astype(np.float32), 512, -1)
+    h = rng.integers(-127, 127, s.shape) + 0.5
+    a = (s.astype(np.float64) * h / 127).astype(np.float32)
+    a = np.where(a / s * np.float32(127) == h, a, np.float32(0))
+    a[..., ::512] = s[..., ::512] * np.where(rng.random((L, k, nb)) < 0.5, 1, -1)
+    return a[..., :m]
+
+
+def _coeff_quant_into(A, codes, scales, ship, vec):
+    """coeff_quant's entry point on buffers of the caller's, by the plan of
+    ``wire.coeff_plan(L k, m, vec)``: codes or ship off alignment take the
+    scalar path (vec False), which the wrapper's fresh outputs never do."""
+    L, k, m = A.shape
+    plan = wire.coeff_plan(L * k, m, vec)
+    _build.launch("coeff_quant", "gradestc_coeff_quant_f32", A.data_ptr(), codes.data_ptr(),
+                  scales.data_ptr(), ship.data_ptr(), L, k, m, plan.vec, plan.grid,
+                  _build.stream(A))
+
+
+def _same_wire(got, want):
+    return (torch.equal(got[0], want[0]) and _same_bits(got[1], want[1])
+            and _same_bits(got[2], want[2]))
+
+
+@pytest.mark.parametrize("L,k,m", COEFF_SHAPES)
 def test_cuda_coeff_quant_bit_exact(cuda, L, k, m):
     A = _coeffs(L, k, m, seed=m)
     A[0, 0, :512] = 0.0                               # an all-zero block
-    A[0, 1, :3] = [127.0, 2.5, -0.5]                  # the max and two ties
+    A[0, 1, :3] = [127.0, 2.5, -0.5][:m]              # the max and two ties
     At = torch.from_numpy(A).to(cuda)
     n = ops.launch_counts()["coeff_quant"]
     codes, scales, ship = ops.coeff_quant(At)
@@ -152,6 +200,29 @@ def test_cuda_coeff_quant_bit_exact(cuda, L, k, m):
     assert torch.equal(ship.view(torch.int32), rp.view(torch.int32))
     assert float(scales[0, 0, 0]) == np.float32(1e-12)
     assert torch.equal(ops.coeff_roundtrip(At, "int8"), ship)
+    # zero-laden inputs, exact ties at scales over 20 decades, and scales
+    # above 2^100, which take the IEEE division
+    T = torch.from_numpy(_ties(L, k, m, seed=m + 2)).to(cuda)
+    assert m < 512 or float((T != 0).float().mean()) > 0.5          # most values are ties
+    H = At * 1e32
+    assert float(H.abs().max()) > 2.0 ** 100
+    for label, Z in {**_zero_laden(At), "ties": T, "huge": H}.items():
+        assert _same_wire(ops.coeff_quant(Z), tref.coeff_quant_ref(Z)), label
+    z = ops.coeff_quant(torch.zeros_like(At))
+    assert not bool(z[0].any()) and bool((z[1] == np.float32(1e-12)).all())
+    assert not bool(z[2].any()) and not bool(torch.signbit(z[2]).any())
+    # the scalar path: A, codes or ship one element off 16-byte alignment
+    assert _same_wire(ops.coeff_quant(_offset(At.reshape(-1), True).view(L, k, m)),
+                      (rc, rs, rp))
+    for off_codes, off_ship in ((True, False), (False, True)):
+        c = _offset(torch.zeros(L * k * m, dtype=torch.int8, device=cuda), off_codes)
+        p = _offset(torch.zeros(L * k * m, device=cuda), off_ship)
+        sc = torch.empty_like(rs)
+        _coeff_quant_into(At, c, sc, p, False)
+        assert _same_wire((c.view(L, k, m), sc, p.view(L, k, m)), (rc, rs, rp))
+        if m % 4 == 0:                                # the vector path refuses them
+            with pytest.raises(RuntimeError):
+                _coeff_quant_into(At, c, sc, p, True)
 
 
 def _code_flips_ok(A, scales, codes, ref_codes):
@@ -544,7 +615,7 @@ def test_cuda_quant_wire_other_widths(cuda, n, bits, block):
     assert torch.equal(cw, words.cpu()) and _same_bits(cs, scales.cpu())
 
 
-@pytest.mark.parametrize("L,k,m", [(2, 64, 2048), (2, 64, 2816), (3, 5, 700), (1, 4, 100)])
+@pytest.mark.parametrize("L,k,m", COEFF_SHAPES)
 def test_cuda_coeff_dequant_bit_exact(cuda, L, k, m):
     A = torch.from_numpy(_coeffs(L, k, m, seed=m + 1)).to(cuda)
     codes, scales, ship = ops.coeff_quant(A)
@@ -558,6 +629,46 @@ def test_cuda_coeff_dequant_bit_exact(cuda, L, k, m):
         ops.coeff_dequant(codes, scales[..., :0])
     with pytest.raises(TypeError):
         ops.coeff_dequant(codes.int(), scales)
+    # zero-laden inputs
+    for label, Z in _zero_laden(A).items():
+        zc, zs, zp = ops.coeff_quant(Z)
+        assert _same_bits(ops.coeff_dequant(zc, zs), zp), label
+    # the scalar path: codes one byte off alignment, or an output one float off
+    assert _same_bits(ops.coeff_dequant(_offset(codes.reshape(-1), True).view(L, k, m),
+                                         scales), ship)
+    o = _offset(torch.zeros(L * k * m, device=cuda), True)
+    plan = wire.coeff_dequant_plan(L * k * m, m, False)
+    _build.launch("coeff_dequant", "wire_coeff_dequant_f32", codes.data_ptr(), scales.data_ptr(),
+                  o.data_ptr(), L * k, m, plan.vec_chunks, plan.grid, _build.stream(codes))
+    assert _same_bits(o.view(L, k, m), ship)
+
+
+def _slice_coeff_shapes():
+    """The compressed groups' (L, l, m, k) of the TinyLlama-width slice."""
+    from repro_torch.core.policy import make_policy
+
+    arch = dataclasses.replace(CONFIG, n_layers=2, vocab=4096, dtype="float32", remat=False)
+    policy = make_policy(model.param_group_shapes(arch), min_params=4096)
+    return sorted({(p.stack, p.l, p.m, p.k) for p in policy.plans.values() if p.compress})
+
+
+@pytest.mark.parametrize("L,l,m,k", _slice_coeff_shapes())
+def test_cuda_coeff_wire_at_the_slice_shapes(cuda, L, l, m, k):
+    """At each compressed group shape of the slice, on A = M^T G, A with
+    every seventh value +-0 and A = 0: coeff_quant equals its plain version
+    bit for bit, coeff_dequant its shipped values, decode_wire decode(M,
+    coeff_dequant); encode_quant with M = 0 gives codes 0, scales 1e-12 and
+    E == G."""
+    M, G = (torch.from_numpy(x).to(cuda) for x in _inputs(l, k, m, L, seed=l + m))
+    A = torch.matmul(M.mT, G)
+    for label, X in {"A": A, **_zero_laden(A)}.items():
+        codes, scales, ship = ops.coeff_quant(X)
+        assert _same_wire((codes, scales, ship), tref.coeff_quant_ref(X)), label
+        back = ops.coeff_dequant(codes, scales)
+        assert _same_bits(back, ship), label
+        assert _same_bits(ops.decode_wire(M, codes, scales), ops.decode(M, back)), label
+    c0, s0, E0 = ops.encode_quant(torch.zeros_like(M), G)
+    assert not bool(c0.any()) and bool((s0 == np.float32(1e-12)).all()) and torch.equal(E0, G)
 
 
 def _qkv(B, Sq, Skv, H, KV, hd, dtype, device, seed=0):
