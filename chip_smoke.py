@@ -62,7 +62,10 @@ script exits non-zero:
 4. slice: ``run_fl`` (loop engine) at TinyLlama-1.1B width, cut to 2
    layers and a 4096 vocab, for gradestc on the f32, int8 and bf16 wires,
    svdfed on the f32, bf16 and int8 wires, signsgd, fedpaq (8 and 6 bits),
-   fedqclip, then fedavg; and at Gemma3-1B width, cut to 6 layers (one
+   fedqclip, topk, gradestc-ef, the ablations gradestc-first, -all and -k,
+   gradestc with ``downlink_compress=True`` (the server encodes each
+   compressed group once a round too), then fedavg; and at Gemma3-1B
+   width, cut to 6 layers (one
    5:1 local:global pattern) and a 4096 vocab at seq 1024, for gradestc
    and fedavg; the counts of all thirteen kernels (set to 0 just before
    each run, read just after; flash_attention exactly n_layers x
@@ -70,16 +73,26 @@ script exits non-zero:
    codecs' against their closed form), eval loss, ms/round and peak
    memory; every host sync of each run (torch's sync debug mode), by the
    port's source line that made it: only ``host_fetch`` (one per round and
-   per eval) and cuSOLVER's error checks in ``core/rsvd.py`` (gradestc and
-   svdfed) may sync; and how many of the coefficients that gradestc-int8's
-   wire quantizes are exactly +-0;
+   per eval) and cuSOLVER's error checks in ``core/rsvd.py`` (every
+   gradestc run and svdfed) may sync; the closed forms of top-k's uplink
+   (2k x 32 bits a group, k = max(1, int(0.1 n))) and of gradestc-all's
+   and gradestc-first's, and gradestc-downlink's broadcast under the raw
+   model's; and how many of the coefficients that gradestc-int8's wire
+   quantizes are exactly +-0;
 5. card vs CPU: a small config through the port on both, for every method
    and wire of phase 4 (the CPU side with ``use_pallas=True``, the card's
    block-local quantizer wire), and gradestc on Gemma3-1B's reduced config
    at seq 32 (its 16-token window masks); per-round uplink equal, eval loss
-   within the CPU parity tests' tolerance (5e-4 absolute for fedpaq and
-   fedqclip).  The card's eval forward runs the flash kernel, the CPU's the
-   plain attention.
+   within the CPU parity tests' tolerance (5e-4 absolute for fedpaq,
+   fedqclip and topk).  The card's eval forward runs the flash kernel, the
+   CPU's the plain attention;
+6. api: the Alg. 1/2 compressor API (``core/gradestc``) at TinyLlama's
+   ``layers/mlp_wout`` shape (L, l, m, k) = (2, 4096, 2816, 64), d = 16,
+   for 4 rounds (``compress_init`` and ``decompress(init_basis=...)``, then
+   ``compress_update`` and ``decompress``): after every round the server's
+   basis equals the client's bit for bit, Ghat equals ``reconstruct(M, A)``
+   bit for bit, the payload's bytes are Formula 14's, and encode and decode
+   each launch once.
 
 ``python3 chip_smoke.py --turn TREE`` runs phase 1 and then only
 ``coeff_wire_times``, on the port under ``TREE/src`` (``.``, or a parent
@@ -136,26 +149,40 @@ SCALE_RTOL = 1e-6         # encode_quant's scales (max |A| of its own GEMM)
 #: the reference's own tolerance for these codecs across its engines
 QUANT_LOSS_ATOL = 5e-4
 
+#: the methods held within QUANT_LOSS_ATOL across devices: the stochastic
+#: quantizers, and top-k, where a delta an ulp apart can flip which entry
+#: ties at the k-th magnitude (the reference's own tolerance for top-k)
+ATOL_METHODS = ("fedpaq", "fedqclip", "topk")
+
 #: flash attention against its plain version: the JAX tests' tolerances
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
-#: phase 4's runs: (label, method, method_kw); TinyLlama width, then Gemma3
-SLICE_RUNS = (("gradestc", "gradestc", {"wire_dtype": "f32"}),
-              ("gradestc-int8", "gradestc", {"wire_dtype": "int8"}),
-              ("gradestc-bf16", "gradestc", {"wire_dtype": "bf16"}),
-              ("svdfed", "svdfed", {"wire_dtype": "f32"}),
-              ("svdfed-bf16", "svdfed", {"wire_dtype": "bf16"}),
-              ("svdfed-int8", "svdfed", {"wire_dtype": "int8"}),
-              ("signsgd", "signsgd", {}), ("fedpaq", "fedpaq", {}),
-              ("fedpaq-6bit", "fedpaq", {"bits": 6}), ("fedqclip", "fedqclip", {}),
-              ("fedavg", "fedavg", {}))
-GEMMA_RUNS = (("gemma3-gradestc", "gradestc", {}), ("gemma3-fedavg", "fedavg", {}))
+#: phase 4's runs: (label, method, method_kw, more FLConfig fields);
+#: TinyLlama width, then Gemma3
+SLICE_RUNS = (("gradestc", "gradestc", {"wire_dtype": "f32"}, {}),
+              ("gradestc-int8", "gradestc", {"wire_dtype": "int8"}, {}),
+              ("gradestc-bf16", "gradestc", {"wire_dtype": "bf16"}, {}),
+              ("svdfed", "svdfed", {"wire_dtype": "f32"}, {}),
+              ("svdfed-bf16", "svdfed", {"wire_dtype": "bf16"}, {}),
+              ("svdfed-int8", "svdfed", {"wire_dtype": "int8"}, {}),
+              ("signsgd", "signsgd", {}, {}), ("fedpaq", "fedpaq", {}, {}),
+              ("fedpaq-6bit", "fedpaq", {"bits": 6}, {}), ("fedqclip", "fedqclip", {}, {}),
+              ("topk", "topk", {}, {}), ("gradestc-ef", "gradestc-ef", {}, {}),
+              ("gradestc-first", "gradestc-first", {}, {}),
+              ("gradestc-all", "gradestc-all", {}, {}), ("gradestc-k", "gradestc-k", {}, {}),
+              ("gradestc-downlink", "gradestc", {}, {"downlink_compress": True}),
+              ("fedavg", "fedavg", {}, {}))
+GEMMA_RUNS = (("gemma3-gradestc", "gradestc", {}, {}), ("gemma3-fedavg", "fedavg", {}, {}))
 #: the flat codecs compress every group; the others the policy's compressed ones
-FLAT_METHODS = ("signsgd", "fedpaq", "fedqclip")
+FLAT_METHODS = ("signsgd", "fedpaq", "fedqclip", "topk")
 #: the codec kernels each run must launch (once per codec group per client
-#: per round); flash_attention runs in every eval forward; every other
-#: kernel stays at zero
+#: per round, and once more per group and round for the server's downlink
+#: encode); flash_attention runs in every eval forward; every other kernel
+#: stays at zero (top-k has no kernel)
 RUN_KERNELS = {"gradestc": ("encode", "decode"), "gradestc-bf16": ("encode", "decode"),
+               "gradestc-ef": ("encode", "decode"), "gradestc-first": ("encode", "decode"),
+               "gradestc-all": ("encode", "decode"), "gradestc-k": ("encode", "decode"),
+               "gradestc-downlink": ("encode", "decode"),
                "gradestc-int8": ("encode", "decode", "coeff_quant"),
                "svdfed-int8": ("encode_quant", "decode_wire"),
                "signsgd": ("sign_pack", "sign_unpack"),
@@ -1331,11 +1358,90 @@ def check_syncs(label: str, method: str, sites, fetches: int, expect_fetches: in
     other = {s: n for s, n in sites.items() if not s.startswith("repro_torch/core/metrics.py")}
     log("syncs", f"{label}: {sum(sites.values())} host syncs: host_fetch {fetch_syncs} "
                  f"(counted {fetches}, expected {expect_fetches}); others {dict(sorted(other.items()))}")
-    allowed = ("repro_torch/core/rsvd.py",) if method in ("gradestc", "svdfed") else ()
+    allowed = (("repro_torch/core/rsvd.py",)
+               if method.startswith("gradestc") or method == "svdfed" else ())
     bad = {s: n for s, n in other.items() if not s.startswith(allowed)}
     if fetch_syncs != fetches or fetches != expect_fetches or bad:
         raise AssertionError(f"{label}: unexpected host syncs {bad}, host_fetch "
                              f"{fetch_syncs}/{fetches}/{expect_fetches}")
+
+
+def check_ablations(runs, policy, n_clients: int, rounds: int, raw_bits: int) -> None:
+    """Phase 4's new GradESTC runs against their closed forms: gradestc-all
+    ships every basis and its coefficients every round (gradestc's round
+    0); gradestc-first does so in round 0 and then coefficients alone; the
+    raw groups ship 32 bits a value.  gradestc-downlink's broadcast costs
+    less than the raw model's."""
+    comp = [p for p in policy.plans.values() if p.compress]
+    raw = 32 * sum(p.raw_scalars for p in policy.plans.values() if not p.compress)
+    init = sum(p.stack * 32 * p.k * (p.l + p.m) for p in comp)
+    coeffs = sum(p.stack * 32 * p.k * p.m for p in comp)
+    want = {"gradestc-all": [n_clients * (init + raw)] * rounds,
+            "gradestc-first": [n_clients * (init + raw)] + [n_clients * (coeffs + raw)]
+            * (rounds - 1)}
+    log("slice", f"GradESTC per client-round: codec init {init} bits, coefficients alone "
+                 f"{coeffs}, raw groups {raw}")
+    for label, per_round in want.items():
+        got = runs[label].ledger.per_round_uplink_bits
+        if got != per_round or got[0] != runs["gradestc"].ledger.per_round_uplink_bits[0]:
+            raise AssertionError(f"{label}: per-round uplink {got}, closed form {per_round}")
+    dl = runs["gradestc-downlink"].ledger.downlink_bits
+    if not 0 < dl < raw_bits:
+        raise AssertionError(f"gradestc-downlink: downlink {dl} bits, raw {raw_bits}")
+    log("slice", f"gradestc-downlink: downlink {dl} bits, raw {raw_bits} "
+                 f"({dl / raw_bits:.4f}); gradestc's {runs['gradestc'].ledger.downlink_bits}")
+
+
+def phase_compressor_api(plan, d: int = 16, rounds: int = 4) -> None:
+    """The Alg. 1/2 API (``core/gradestc``) at one group's (L, l, m, k):
+    round 0 ``compress_init`` and ``decompress(init_basis=...)``, then
+    ``compress_update`` and ``decompress``, on drifting low-rank gradients.
+    After every round the server's basis must equal the client's bit for
+    bit, Ghat must equal ``reconstruct(M, A)`` bit for bit, the payload's
+    scalars must be Formula 14's, and each round must launch encode and
+    decode once."""
+    from repro_torch.core import gradestc as ge
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops
+
+    L, l, m, k = plan.stack, plan.l, plan.m, plan.k
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    U = torch.linalg.qr(torch.randn(L, l, k, device="cuda", generator=gen)).Q
+    sv = 0.01 * 0.9 ** torch.arange(k, device="cuda", dtype=torch.float32)
+    drift = 0.2 / math.sqrt(l)       # each basis column moves by ~0.2 a round
+    client = ge.init_compressor(l, k, prng.split(prng.PRNGKey(0, "cuda"), L))
+    server = ge.DecompressorState(M=torch.zeros(L, l, k, device="cuda"))
+    for rnd in range(rounds):
+        U = torch.linalg.qr(U + drift * torch.randn(U.shape, device="cuda", generator=gen)).Q
+        G = (U * sv) @ torch.randn(L, k, m, device="cuda", generator=gen) + 1e-5 * torch.randn(
+            L, l, m, device="cuda", generator=gen)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if rnd == 0:
+            client, payload, stats = ge.compress_init(client, G, k=k)
+            server, Ghat = ge.decompress(server, payload, init_basis=client.M)
+        else:
+            client, payload, stats = ge.compress_update(client, G, k=k, d=d)
+            server, Ghat = ge.decompress(server, payload)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        counts = {n: c for n, c in ops.launch_counts().items() if c}
+        d_r = payload.d_r.tolist()
+        init = bool(payload.init.all())
+        scalars = ge.payload_scalars(payload, l=l, m=m, k=k).tolist()
+        formula = [4 * (k * l + k * m if init else k * m + r * l + r) for r in d_r]
+        ok_m = torch.equal(server.M, client.M)
+        ok_g = torch.equal(Ghat, ge.reconstruct(client.M, payload.coeffs))
+        rel = float(torch.linalg.vector_norm(G - Ghat) / torch.linalg.vector_norm(G))
+        log("api", f"round {rnd} ({'init' if rnd == 0 else f'update, d={d}'}) at L={L} l={l} "
+                   f"m={m} k={k}: d_r {d_r}, payload bytes {scalars}, server M == client M "
+                   f"{ok_m}, Ghat == reconstruct {ok_g}, ||G - Ghat|| / ||G|| {rel:.3e}, "
+                   f"launches {counts}, {ms:.2f} ms")
+        if (not ok_m or not ok_g or scalars != formula or init != (rnd == 0)
+                or counts != {"encode": 1, "decode": 1} or not math.isfinite(rel)):
+            raise AssertionError(f"api round {rnd}: payload bytes {scalars} (Formula 14 "
+                                 f"{formula}), launches {counts}, init {init}")
 
 
 def run_slice(method: str, arch, device: str, progress=None, **kw):
@@ -1561,12 +1667,13 @@ def main() -> int:
     gemma_kw = {**kw, "batch": 2, "seq": 1024}
     launches = {}
     runs = {}
-    for label, method, mkw in SLICE_RUNS + GEMMA_RUNS:
+    for label, method, mkw, ckw in SLICE_RUNS + GEMMA_RUNS:
         a, pol, rkw = (gemma, gemma_policy, gemma_kw) if label.startswith("gemma3") else (
             arch, policy, kw)
         groups = (len(pol.plans) if method in FLAT_METHODS
                   else sum(p.compress for p in pol.plans.values()))
-        expect = groups * n_clients * rounds
+        encoders = n_clients + bool(ckw.get("downlink_compress"))
+        expect = groups * encoders * rounds
         flash_per_eval = a.n_layers * 4          # FLConfig.eval_batches
         flash_seen = []
 
@@ -1584,7 +1691,7 @@ def main() -> int:
         ops.reset_launch_counts()
         metrics.reset_host_sync_count()
         with SyncCounter() as syncs, zeros:
-            res = run_slice(method, a, "cuda", progress=after_eval, method_kw=mkw, **rkw)
+            res = run_slice(method, a, "cuda", progress=after_eval, method_kw=mkw, **rkw, **ckw)
             torch.cuda.synchronize()
         if label == "gradestc-int8":
             log("slice", f"{label}: coeff_quant saw {zeros.calls} A_new, {zeros.zeros()} of "
@@ -1597,7 +1704,8 @@ def main() -> int:
         ms_round = 1e3 * statistics.mean(res.extra["round_wall_s"][1:])
         log("slice", f"{label}: ms/round(rounds 1-2) {ms_round:.1f} "
                      f"uplink bytes {res.ledger.uplink_total:.0f} per-round "
-                     f"{res.ledger.per_round_uplink} eval loss {res.eval_loss} "
+                     f"{res.ledger.per_round_uplink} downlink bits {res.ledger.downlink_bits} "
+                     f"sum_d {res.extra.get('sum_d')} eval loss {res.eval_loss} "
                      f"launches {launches[label]} flash after each eval {flash_seen} "
                      f"max_memory_allocated {torch.cuda.max_memory_allocated()} B "
                      f"wall {res.wall_s:.1f} s")
@@ -1627,10 +1735,12 @@ def main() -> int:
               "fedpaq": sum(8 * n + 32 * -(-n // 512) for n in sizes),
               "fedpaq-6bit": sum(6 * n + 32 * -(-n // 512) for n in sizes)}
     closed["fedqclip"] = closed["fedpaq"]
+    closed["topk"] = sum(64 * max(1, int(0.1 * n)) for n in sizes)
     for label, per_client in closed.items():
         if not bits[label] == per_client * n_clients * rounds < raw_bits:
             raise AssertionError(f"{label}: uplink {bits[label]} bits, closed form "
                                  f"{per_client * n_clients * rounds}, fedavg {raw_bits}")
+    check_ablations(runs, policy, n_clients, rounds, raw_bits)
     gemma_ratio = bits["gemma3-gradestc"] / bits["gemma3-fedavg"]
     log("slice", "uplink / fedavg: " + ", ".join(
         f"{label} {b / raw_bits:.4f}" for label, b in bits.items()
@@ -1643,7 +1753,8 @@ def main() -> int:
     from repro_torch.configs import get_config
 
     small = dict(rounds=3, n_clients=3, local_steps=1, batch=2, seq=16, eval_every=2)
-    parity = [(label, method, mkw, small_arch(), small) for label, method, mkw in SLICE_RUNS]
+    parity = [(label, method, mkw, small_arch(), {**small, **ckw})
+              for label, method, mkw, ckw in SLICE_RUNS]
     parity.append(("gemma3-reduced gradestc", "gradestc", {}, get_config("gemma3-1b").reduced(),
                    {**small, "seq": 32}))
     for label, method, mkw, a, skw in parity:
@@ -1657,12 +1768,15 @@ def main() -> int:
                       f"cpu {cpu.eval_loss} max rel diff {rel:.3e} abs {dif:.3e}")
         if gpu.ledger.per_round_uplink_bits != cpu.ledger.per_round_uplink_bits:
             raise AssertionError(f"{label}: per-round uplink differs between card and CPU")
-        if method in ("fedpaq", "fedqclip") and dif > QUANT_LOSS_ATOL:
+        if method in ATOL_METHODS and dif > QUANT_LOSS_ATOL:
             raise AssertionError(f"{label}: eval loss differs by {dif:.3e} > {QUANT_LOSS_ATOL}")
-        if method not in ("fedpaq", "fedqclip") and rel > LOSS_RTOL:
+        if method not in ATOL_METHODS and rel > LOSS_RTOL:
             raise AssertionError(f"{label}: eval loss differs by {rel:.3e} > {LOSS_RTOL}")
 
-    # ---- 6. summary lines
+    # ---- 6. the Alg. 1/2 compressor API at one TinyLlama group's shape
+    phase_compressor_api(policy.plans["layers/mlp_wout"])
+
+    # ---- 7. summary lines
     csrc = "src/repro_torch/kernels/csrc/"
     rows = []
     for name, row_name, replaces, run, src in (

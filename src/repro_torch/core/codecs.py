@@ -1,14 +1,20 @@
 """Stateless codec protocol: GradESTC behind the reference's codec contract.
 
-Port of ``repro/core/codecs.py`` (the parts the ported paths run: the
-``Codec`` base, the flat ``(n,)`` layout of the per-tensor baselines with
-``SignSGDCodec``, ``FedPAQCodec`` and ``FedQClipCodec``, the ``(L, l, m)``
-matrix wire layout, the f32/bf16/int8 coefficient wires, ``GradESTCCodec``
-variant ``full`` and ``SVDFedCodec``).  A codec owns its wire layout
+Port of ``repro/core/codecs.py``: the ``Codec`` base, the flat ``(n,)``
+layout of the per-tensor baselines with ``TopKCodec``, ``SignSGDCodec``,
+``FedPAQCodec`` and ``FedQClipCodec``, the ``(L, l, m)`` matrix wire
+layout, the f32/bf16/int8 coefficient wires, ``GradESTCCodec`` (variants
+``full``, ``first``, ``all`` and ``k``), ``SVDFedCodec`` and the
+error-feedback wrapper ``EFCodec``.  A codec owns its wire layout
 (``to_wire``/``from_wire``) and per-client state, and ``encode`` returns
 the new state, the server-side reconstruction in wire layout and a small
 int32 stats vector -- the only thing the host ever reads.  ``charge_bits``
 turns the reduced stats into exact Python-int uplink bits (Formula 14).
+
+Client state is a flat tuple of tensors with a leading client axis (``()``
+for a stateless codec): the loop engine indexes and writes back each of
+them per client, so a wrapper appends its tensors to the inner codec's
+tuple rather than nesting it.
 
 PRNG streams are ``fold_in`` chains (:mod:`repro_torch.core.prng`), the
 reference's exactly: the quantizers draw from :func:`round_base_key`
@@ -24,13 +30,15 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from . import baselines as bl
 from . import gradestc as ge
 from . import prng
 from .policy import LayerPlan
 from .rsvd import randomized_svd
 
-__all__ = ["Codec", "SignSGDCodec", "FedPAQCodec", "FedQClipCodec", "GradESTCCodec",
-           "SVDFedCodec", "client_layer_keys", "round_base_key", "SERVER_CLIENT_ID"]
+__all__ = ["Codec", "EFCodec", "TopKCodec", "SignSGDCodec", "FedPAQCodec", "FedQClipCodec",
+           "GradESTCCodec", "SVDFedCodec", "client_layer_keys", "round_base_key",
+           "SERVER_CLIENT_ID"]
 
 #: Client id of server-side (downlink) codec instances.
 SERVER_CLIENT_ID = 0xFFFFFFFF
@@ -67,7 +75,10 @@ class Codec:
         integer tensor on the key's device (one key per element)."""
         return prng.fold_in(prng.fold_in(base_key, client), self.path_idx)
 
-    def init_client_state(self, n_clients: int, device="cuda"):
+    def init_client_state(self, n_clients: int, device="cuda", client_ids=None):
+        """Per-client state on a leading client axis; ``client_ids`` (default
+        ``range(n_clients)``) names the clients where the state depends on
+        them (the downlink's one server instance is ``SERVER_CLIENT_ID``)."""
         return ()
 
     def init_shared_state(self, device="cuda"):
@@ -113,6 +124,25 @@ class _FlatCodec(Codec):
 
     def to_wire(self, delta: torch.Tensor) -> torch.Tensor:
         return delta.reshape(-1).float()
+
+
+class TopKCodec(_FlatCodec):
+    """Magnitude top-k with a per-client error memory: k values and k int32
+    indices, ``2k * 32`` bits a client.  State: ``(memory (C, n),)``."""
+
+    def __init__(self, n: int, frac: float = 0.1, path_idx: int = 0):
+        super().__init__(n, path_idx)
+        self.k = max(1, int(frac * self.n))
+
+    def init_client_state(self, n_clients: int, device="cuda", client_ids=None):
+        return (torch.zeros((n_clients, self.n), dtype=torch.float32, device=device),)
+
+    def encode(self, cstate, shared, key, wire):
+        st, ghat, _ = bl.topk_compress(bl.TopKState(*cstate), wire, self.k)
+        return (st.memory,), ghat, _no_stats(wire)
+
+    def charge_bits(self, reduced, n_sel):
+        return 32 * 2 * self.k * n_sel
 
 
 class SignSGDCodec(_FlatCodec):
@@ -279,8 +309,11 @@ class SVDFedCodec(_MatrixCodec):
 
 
 class GradESTCCodec(_MatrixCodec):
-    """The paper's spatio-temporal compressor, rank-padded (variant
-    ``full``; coefficient wire f32, bf16 or int8).
+    """The paper's spatio-temporal compressor, rank-padded (coefficient
+    wire f32, bf16 or int8).  ``variant``: ``full`` (the paper's), or the
+    Table IV ablations ``first`` (the first round's basis stays: no
+    candidate ever enters), ``all`` (every round re-initializes) and ``k``
+    (a fixed ``d = k``).
 
     Per-client state: basis stack ``(L, l, k)``, rSVD keys ``(L, 2)``, init
     flags ``(L,)``; the engine stacks them on a leading client axis.  The
@@ -298,10 +331,8 @@ class GradESTCCodec(_MatrixCodec):
     def __init__(self, plan: LayerPlan, seed: int = 0, path_idx: int = 0,
                  variant: str = "full", alpha: float = 1.3, beta: float = 1.0,
                  wire_dtype: str = "f32"):
-        if variant != "full":
-            raise NotImplementedError(
-                f"GradESTC variant={variant!r}: only variant 'full' is ported "
-                "(ROADMAP A9)")
+        if variant not in ("full", "first", "all", "k"):
+            raise ValueError(f"GradESTC variant={variant!r}; expected full, first, all or k")
         _check_wire_dtype(wire_dtype)
         super().__init__(plan, path_idx)
         self.seed = int(seed)
@@ -309,22 +340,38 @@ class GradESTCCodec(_MatrixCodec):
         self.alpha, self.beta = float(alpha), float(beta)
         self.wire_dtype = wire_dtype
 
-    def init_client_state(self, n_clients: int, device="cuda"):
+    def init_client_state(self, n_clients: int, device="cuda", client_ids=None):
         plan = self.plan
         L, l, k = plan.stack, plan.l, plan.k
-        keys = torch.stack([client_layer_keys(self.seed, c, self.path_idx, L, device)
-                            for c in range(n_clients)])
+        ids = range(n_clients) if client_ids is None else client_ids
+        keys = torch.stack([client_layer_keys(self.seed, int(c), self.path_idx, L, device)
+                            for c in ids])
         return (torch.zeros((n_clients, L, l, k), dtype=torch.float32, device=device),
                 keys,
                 torch.zeros((n_clients, L), dtype=torch.bool, device=device))
 
     def init_shared_state(self, device="cuda"):
-        return torch.full((), max(1, self.plan.k // 4), dtype=torch.int32, device=device)
+        k = self.plan.k
+        d0 = k if self.variant == "k" else max(1, k // 4)
+        return torch.full((), d0, dtype=torch.int32, device=device)
+
+    def _round_d(self, shared: torch.Tensor) -> torch.Tensor:
+        """The candidate count updating layers use this round (on the
+        device).  ``first`` masks every candidate (d = 0), but the rank-d_max
+        sketch still runs, as in the reference: only its uplink and sum_d
+        are what the ablation compares."""
+        if self.variant == "first":
+            return torch.zeros_like(shared)
+        if self.variant == "k":
+            return torch.full_like(shared, self.plan.k)
+        return shared
 
     def encode(self, cstate, shared, key, wire):
         plan = self.plan
         M, keys, inited = cstate
-        d = shared
+        d = self._round_d(shared)
+        if self.variant == "all":          # re-initialize every round
+            inited = torch.zeros_like(inited)
         st2, payload, stats = ge.compress_step(
             ge.CompressorState(M=M, key=keys, initialized=inited), wire,
             k=plan.k, d=d, d_max=plan.d_max, wire_dtype=self.wire_dtype)
@@ -342,6 +389,8 @@ class GradESTCCodec(_MatrixCodec):
                             stats[:, 2].sum(), stats[:, 3].max()]).to(torch.int32)
 
     def update_shared(self, shared, reduced_stats, mean_wire):
+        if self.variant != "full":         # d fixed for the ablations
+            return shared
         drmax, n_upd = reduced_stats[0], reduced_stats[1]
         d2 = ge.next_candidate_count(drmax, self.plan.k, self.alpha, self.beta)
         # init-only rounds (n_upd == 0) carry d forward unchanged
@@ -357,7 +406,57 @@ class GradESTCCodec(_MatrixCodec):
                 + 32 * sum_dr * (plan.l + 1))
 
     def host_metrics(self, reduced, n_sel):
-        # every init pays a rank-k sketch, every update a rank-d one
+        # every init pays a rank-k sketch, every update a rank-d one (d is
+        # spent only by full and k)
         n_upd = int(reduced[1])
         n_init = n_sel * self.plan.stack - n_upd
-        return {"sum_d": self.plan.k * n_init + int(reduced[3]) * n_upd}
+        inc = self.plan.k * n_init
+        if self.variant in ("full", "k"):
+            inc += int(reduced[3]) * n_upd
+        return {"sum_d": inc}
+
+
+class EFCodec(Codec):
+    """Error-feedback wrapper (``gradestc-ef``): a per-client memory of the
+    compression residual in wire layout, re-injected before the inner
+    encode.  State: the inner codec's tuple, then the memory ``(C,
+    *mem_shape)``."""
+
+    def __init__(self, inner: Codec, mem_shape):
+        super().__init__(inner.path_idx)
+        self.inner = inner
+        self.mem_shape = tuple(int(s) for s in mem_shape)
+        self.client_stats_len = inner.client_stats_len
+        self.stats_len = inner.stats_len
+        self.draws = inner.draws
+
+    def init_client_state(self, n_clients: int, device="cuda", client_ids=None):
+        mem = torch.zeros((n_clients,) + self.mem_shape, dtype=torch.float32, device=device)
+        return (*self.inner.init_client_state(n_clients, device, client_ids), mem)
+
+    def init_shared_state(self, device="cuda"):
+        return self.inner.init_shared_state(device)
+
+    def to_wire(self, delta):
+        return self.inner.to_wire(delta)
+
+    def from_wire(self, wire, shape):
+        return self.inner.from_wire(wire, shape)
+
+    def encode(self, cstate, shared, key, wire):
+        *inner_st, mem = cstate
+        injected = wire + mem
+        inner_st2, recon, stats = self.inner.encode(tuple(inner_st), shared, key, injected)
+        return (*inner_st2, injected - recon), recon, stats
+
+    def reduce_stats(self, stats):
+        return self.inner.reduce_stats(stats)
+
+    def update_shared(self, shared, reduced_stats, mean_wire):
+        return self.inner.update_shared(shared, reduced_stats, mean_wire)
+
+    def charge_bits(self, reduced, n_sel):
+        return self.inner.charge_bits(reduced, n_sel)
+
+    def host_metrics(self, reduced, n_sel):
+        return self.inner.host_metrics(reduced, n_sel)

@@ -2,10 +2,20 @@
 
 Port of ``repro/core/gradestc.py``: the rank-padded, branch-free
 :func:`compress_step` with a traced candidate count ``d``, the
-reconstruction ``Ghat = M A`` and Formula 13.  Everything is written over
-leading stack axes (the reference vmaps one layer's step over L): ``G`` is
-``(..., l, m)``, the state's basis ``(..., l, k)``, its key ``(..., 2)`` and
-its init flag ``(...)``.
+reconstruction ``Ghat = M A``, Formula 13 (the reference's
+``next_candidate_count_jax``; its bucketed host rule for static-``d``
+callers is not ported) and the standalone Alg. 1/Alg. 2 API
+(:func:`init_compressor`, :func:`compress_init`, :func:`compress_update`,
+:func:`compress`, :func:`decompress`, :func:`apply_payload`).  Everything
+is written over leading stack axes (the reference vmaps one layer's step
+over L): ``G`` is ``(..., l, m)``, the state's basis ``(..., l, k)``, its
+key ``(..., 2)`` and its init flag ``(...)``.
+
+``compress_init`` and ``compress_update`` are :func:`compress_step` on a
+state forced uninitialized or initialized, with ``d_max`` the static ``d``:
+the sketch runs at the same rank as the reference's, and the init path
+projects against the zero basis (``E = G`` exactly), so both take the
+encode kernel on the card like the codec does.
 
 The projection ``A = M^T G, E = G - M A`` and the reconstruction go through
 ``kernels.ops`` (the CUDA kernels on the card, the plain versions on the
@@ -22,8 +32,10 @@ from ..kernels import ops
 from . import prng
 from .rsvd import randomized_svd
 
-__all__ = ["CompressorState", "Payload", "CompressStats", "compress_step",
-           "reconstruct", "next_candidate_count", "payload_scalars"]
+__all__ = ["CompressorState", "DecompressorState", "Payload", "CompressStats",
+           "init_compressor", "compress_init", "compress_update", "compress_step",
+           "compress", "decompress", "apply_payload", "reconstruct",
+           "next_candidate_count", "payload_scalars"]
 
 
 class CompressorState(NamedTuple):
@@ -32,6 +44,12 @@ class CompressorState(NamedTuple):
     M: torch.Tensor            # (..., l, k) orthonormal basis
     key: torch.Tensor          # (..., 2) threefry key for the rSVD
     initialized: torch.Tensor  # (...) bool
+
+
+class DecompressorState(NamedTuple):
+    """Server-side mirror of the basis."""
+
+    M: torch.Tensor            # (..., l, k)
 
 
 class Payload(NamedTuple):
@@ -48,6 +66,16 @@ class CompressStats(NamedTuple):
     d_r: torch.Tensor            # (...) int32
     recon_err: torch.Tensor      # (...) relative Frobenius reconstruction error
     energy_kept: torch.Tensor    # (...) ||M M^T G||_F^2 / ||G||_F^2
+
+
+def init_compressor(l: int, k: int, key: torch.Tensor,
+                    dtype=torch.float32) -> CompressorState:
+    """A fresh state: zero basis, the given key ``(..., 2)``, not
+    initialized.  Leading axes of ``key`` become the state's stack axes."""
+    lead = key.shape[:-1]
+    return CompressorState(M=torch.zeros(*lead, l, k, dtype=dtype, device=key.device),
+                           key=key,
+                           initialized=torch.zeros(lead, dtype=torch.bool, device=key.device))
 
 
 def _stats(G: torch.Tensor, Ghat: torch.Tensor, d_r: torch.Tensor) -> CompressStats:
@@ -128,6 +156,74 @@ def compress_step(
                                 initialized=torch.ones_like(state.initialized))
     # the stats product mirrors the reference (a plain GEMM beside decode)
     return new_state, payload, _stats(G, M_new @ A_new, d_r)
+
+
+def _with_init(state: CompressorState, flag: bool) -> CompressorState:
+    return state._replace(initialized=torch.full_like(state.initialized, flag))
+
+
+def compress_init(state: CompressorState, G: torch.Tensor, *, k: int
+                  ) -> Tuple[CompressorState, Payload, CompressStats]:
+    """First-round compression (Alg. 1 lines 2-8): the basis is the rank-k
+    rSVD of G, and all k vectors ship."""
+    return compress_step(_with_init(state, False), G, k=k, d=k, d_max=k)
+
+
+def compress_update(state: CompressorState, G: torch.Tensor, *, k: int, d: int
+                    ) -> Tuple[CompressorState, Payload, CompressStats]:
+    """Steady-state compression (Alg. 1 lines 9-29) with a static ``d``
+    candidates from the fitting error.  The state's ``initialized`` flag
+    comes back as it came in, as in the reference."""
+    st2, payload, stats = compress_step(_with_init(state, True), G, k=k, d=d, d_max=d)
+    return st2._replace(initialized=state.initialized), payload, stats
+
+
+def compress(state: CompressorState, G: torch.Tensor, *, k: int, d: int
+             ) -> Tuple[CompressorState, Payload, CompressStats, torch.Tensor]:
+    """Init or update by ``state.initialized``, chosen on the device: both
+    run and :func:`torch.where` selects (a Python branch on the flag would
+    sync the host).  The init payload's ``new_vectors`` is cut or padded to
+    the update's ``(d, l)``.  Returns ``(state, payload, stats, basis)``,
+    ``basis`` the updated M."""
+    l = G.shape[-2]
+    si, pi, ti = compress_init(state, G, k=k)
+    su, pu, tu = compress_update(state, G, k=k, d=d)
+    nv = torch.zeros(*pi.new_vectors.shape[:-2], d, l, dtype=pi.new_vectors.dtype,
+                     device=G.device)
+    nv[..., :min(d, k), :] = pi.new_vectors[..., :min(d, k), :]
+    pi = pi._replace(new_vectors=nv)
+    upd = state.initialized
+
+    def pick(a, b):
+        return torch.where(upd.reshape(upd.shape + (1,) * (a.dim() - upd.dim())), a, b)
+
+    new_state = CompressorState(*(pick(a, b) for a, b in zip(su, si)))
+    payload = Payload(*(pick(a, b) for a, b in zip(pu, pi)))
+    stats = CompressStats(*(pick(a, b) for a, b in zip(tu, ti)))
+    return new_state, payload, stats, new_state.M
+
+
+def decompress(state: DecompressorState, payload: Payload,
+               init_basis: torch.Tensor | None = None
+               ) -> Tuple[DecompressorState, torch.Tensor]:
+    """Server side (Alg. 2): mirror the basis from the payload (the i-th
+    replaced column takes the i-th entering vector), then reconstruct Ghat
+    through the decode kernel.  ``init_basis`` replaces the mirrored basis
+    where ``payload.init``."""
+    M = state.M
+    d, l = payload.new_vectors.shape[-2:]
+    repl_rank = torch.cumsum(payload.replaced_mask.to(torch.int32), -1) - 1
+    src = repl_rank.clamp(0, d - 1).long()
+    cols = torch.gather(payload.new_vectors, -2,
+                        src[..., :, None].expand(*src.shape, l)).mT     # (..., l, k)
+    M_upd = torch.where(payload.replaced_mask[..., None, :], cols, M)
+    if init_basis is not None:
+        M_upd = torch.where(payload.init[..., None, None], init_basis, M_upd)
+    return DecompressorState(M=M_upd), reconstruct(M_upd, payload.coeffs)
+
+
+def apply_payload(state: DecompressorState, payload: Payload) -> DecompressorState:
+    return decompress(state, payload)[0]
 
 
 def reconstruct(M: torch.Tensor, A: torch.Tensor) -> torch.Tensor:

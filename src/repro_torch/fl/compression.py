@@ -1,11 +1,13 @@
 """Uplink compression methods as thin shells over the stateless codecs.
 
-Port of ``repro/fl/compression.py`` for the methods the port runs
-(``fedavg``, ``gradestc``, ``svdfed``, ``signsgd``, ``fedpaq`` and
-``fedqclip``).  A method is host-side configuration that builds one codec
-per compressed group;
+Port of ``repro/fl/compression.py``: ``fedavg``, ``topk``, ``signsgd``,
+``fedpaq``, ``fedqclip``, ``svdfed`` and ``gradestc`` with its ablations
+(``gradestc-first``, ``-all``, ``-k``) and error feedback
+(``gradestc-ef``).  A method is host-side configuration that builds one
+codec per compressed group; :func:`build_downlink_codecs` builds the
+server's GradESTC codecs of the compressed broadcast;
 :class:`RoundAccountant` turns a round's packed int32 stats row into exact
-integer-bit ledger charges.
+integer-bit ledger charges, uplink and downlink.
 """
 
 from __future__ import annotations
@@ -15,13 +17,14 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..core.codecs import (Codec, FedPAQCodec, FedQClipCodec, GradESTCCodec,
-                           SignSGDCodec, SVDFedCodec)
+from ..core.codecs import (Codec, EFCodec, FedPAQCodec, FedQClipCodec, GradESTCCodec,
+                           SignSGDCodec, SVDFedCodec, TopKCodec)
 from ..core.policy import CompressionPolicy, LayerPlan
 
-__all__ = ["make_method", "path_index", "build_codecs", "pack_round_stats",
-           "RoundAccountant", "FedAvgMethod", "GradESTCMethod", "SVDFedMethod",
-           "SignSGDMethod", "FedPAQMethod", "FedQClipMethod"]
+__all__ = ["make_method", "path_index", "build_codecs", "build_downlink_codecs",
+           "pack_round_stats", "RoundAccountant", "FedAvgMethod", "TopKMethod",
+           "GradESTCMethod", "SVDFedMethod", "SignSGDMethod", "FedPAQMethod",
+           "FedQClipMethod"]
 
 
 def path_index(policy: CompressionPolicy) -> Dict[str, int]:
@@ -51,6 +54,19 @@ class FedAvgMethod(_MethodShell):
 
     def build_codec(self, path, plan, path_idx, use_pallas=False):
         return None
+
+
+class TopKMethod(_MethodShell):
+    """Magnitude top-k with an error memory, every group."""
+
+    name = "topk"
+
+    def __init__(self, frac: float = 0.1, **kw):
+        super().__init__(**kw)
+        self.frac = frac
+
+    def build_codec(self, path, plan, path_idx, use_pallas=False):
+        return TopKCodec(plan.raw_scalars, frac=self.frac, path_idx=path_idx)
 
 
 class SignSGDMethod(_MethodShell):
@@ -113,42 +129,54 @@ class SVDFedMethod(_MethodShell):
 
 
 class GradESTCMethod(_MethodShell):
-    """The paper's method (variant ``full``; f32, bf16 or int8 coefficient
-    wire)."""
+    """The paper's method: ``variant`` in {full, first, all, k} (Table IV
+    ablations), ``ef`` error feedback (beyond-paper); f32, bf16 or int8
+    coefficient wire."""
 
     name = "gradestc"
 
     def __init__(self, policy: CompressionPolicy, variant: str = "full",
-                 alpha: float = 1.3, beta: float = 1.0,
+                 alpha: float = 1.3, beta: float = 1.0, ef: bool = False,
                  wire_dtype: str = "f32", **kw):
+        if variant not in ("full", "first", "all", "k"):
+            raise ValueError(f"GradESTC variant={variant!r}; expected full, first, all or k")
         super().__init__(**kw)
         self.policy = policy
         self.variant = variant
         self.alpha, self.beta = alpha, beta
+        self.ef = ef
         self.wire_dtype = wire_dtype
 
     def build_codec(self, path, plan, path_idx, use_pallas=False):
         if not plan.compress:
             return None
-        return GradESTCCodec(plan, seed=self.seed, path_idx=path_idx,
-                             variant=self.variant, alpha=self.alpha,
-                             beta=self.beta, wire_dtype=self.wire_dtype)
+        codec = GradESTCCodec(plan, seed=self.seed, path_idx=path_idx,
+                              variant=self.variant, alpha=self.alpha,
+                              beta=self.beta, wire_dtype=self.wire_dtype)
+        if self.ef:
+            codec = EFCodec(codec, (plan.stack, plan.l, plan.m))
+        return codec
 
 
 def make_method(name: str, policy: Optional[CompressionPolicy] = None, **kw):
     name = name.lower()
     if name == "fedavg":
         return FedAvgMethod(**kw)
-    flat = {"signsgd": SignSGDMethod, "fedpaq": FedPAQMethod, "fedqclip": FedQClipMethod}
+    flat = {"topk": TopKMethod, "signsgd": SignSGDMethod, "fedpaq": FedPAQMethod,
+            "fedqclip": FedQClipMethod}
     if name in flat:
         return flat[name](**kw)
-    if name in ("gradestc", "svdfed"):
+    if name == "svdfed" or name.startswith("gradestc"):
         if policy is None:
             raise ValueError(f"{name} needs a compression policy")
-        return (GradESTCMethod if name == "gradestc" else SVDFedMethod)(policy, **kw)
-    raise NotImplementedError(
-        f"method {name!r} is not ported yet (top-k, EF and the GradESTC "
-        "ablations are ROADMAP A9)")
+        if name == "svdfed":
+            return SVDFedMethod(policy, **kw)
+        # gradestc, gradestc-ef, or gradestc-<variant>
+        suffix = name.split("-", 1)[1] if "-" in name else ""
+        if suffix == "ef":
+            return GradESTCMethod(policy, ef=True, **kw)
+        return GradESTCMethod(policy, variant=suffix or "full", **kw)
+    raise ValueError(f"unknown method {name!r}")
 
 
 def build_codecs(method, policy: CompressionPolicy, group_paths,
@@ -163,10 +191,21 @@ def build_codecs(method, policy: CompressionPolicy, group_paths,
     return out
 
 
-def pack_round_stats(reds: Dict[str, torch.Tensor], device="cuda") -> torch.Tensor:
-    """The round's packed int32 stats vector (reduced stats per sorted
-    uplink path); a stats-free round ships one placeholder."""
-    parts = [reds[p] for p in sorted(reds)]
+def build_downlink_codecs(policy: CompressionPolicy, group_paths, seed: int,
+                          use_pallas: bool = False) -> Dict[str, Codec]:
+    """The server's GradESTC codecs compressing the broadcast
+    (``FLConfig.downlink_compress``): one 'client', ``SERVER_CLIENT_ID``,
+    seeded apart from the uplink codecs."""
+    method = make_method("gradestc", policy=policy, seed=seed + 101)
+    return build_codecs(method, policy, group_paths, use_pallas)
+
+
+def pack_round_stats(reds: Dict[str, torch.Tensor], dl_reds: Dict[str, torch.Tensor],
+                     device="cuda") -> torch.Tensor:
+    """The round's packed int32 stats vector: reduced stats per sorted
+    uplink path, then per sorted downlink path; a stats-free round ships one
+    placeholder."""
+    parts = [reds[p] for p in sorted(reds)] + [dl_reds[p] for p in sorted(dl_reds)]
     if parts and sum(int(p.numel()) for p in parts):
         return torch.cat(parts)
     return torch.zeros((1,), dtype=torch.int32, device=device)
@@ -174,17 +213,25 @@ def pack_round_stats(reds: Dict[str, torch.Tensor], device="cuda") -> torch.Tens
 
 class RoundAccountant:
     """Host half of the codec protocol: charges one round's packed stats row
-    to the ledger in exact integer bits."""
+    to the ledger in exact integer bits.  With ``downlink_enabled`` the
+    broadcast to each selected client is the raw groups plus each downlink
+    codec's charge for its one server instance; otherwise the raw model."""
 
-    def __init__(self, codecs: Dict[str, Codec], policy: CompressionPolicy,
-                 group_paths, n_sel: int):
+    def __init__(self, codecs: Dict[str, Codec], dl_codecs: Dict[str, Codec],
+                 policy: CompressionPolicy, group_paths, n_sel: int,
+                 downlink_enabled: bool = False):
         self.codecs = {p: codecs[p] for p in sorted(codecs)}
+        self.dl_codecs = {p: dl_codecs[p] for p in sorted(dl_codecs)}
         self.n_sel = n_sel
+        self.downlink_enabled = downlink_enabled
         self.metrics: Dict[str, int] = {}
         self.raw_scalars_per_client = sum(
             policy.plans[p].raw_scalars for p in group_paths if p not in codecs)
         self.model_scalars = sum(policy.plans[p].raw_scalars for p in group_paths)
-        self.packed_len = sum(c.stats_len for c in self.codecs.values())
+        self.dl_raw_scalars = sum(
+            policy.plans[p].raw_scalars for p in group_paths if p not in dl_codecs)
+        self.packed_len = (sum(c.stats_len for c in self.codecs.values())
+                           + sum(c.stats_len for c in self.dl_codecs.values()))
 
     def consume(self, packed: np.ndarray, ledger, rnd: int) -> None:
         """Charge the ledger for round ``rnd`` from its fetched stats row."""
@@ -203,4 +250,12 @@ class RoundAccountant:
             for k, v in codec.host_metrics(red, self.n_sel).items():
                 self.metrics[k] = self.metrics.get(k, 0) + v
         ledger.charge_uplink_bits(bits, group=f"round{rnd}", round_idx=rnd)
-        ledger.charge_downlink_bits(32 * self.model_scalars * self.n_sel)
+        if not self.downlink_enabled:
+            ledger.charge_downlink_bits(32 * self.model_scalars * self.n_sel)
+            return
+        dbits = 32 * self.dl_raw_scalars
+        for codec in self.dl_codecs.values():
+            red = packed[off: off + codec.stats_len]
+            off += codec.stats_len
+            dbits += codec.charge_bits(red, 1)
+        ledger.charge_downlink_bits(dbits * self.n_sel)

@@ -9,9 +9,13 @@ weights come from the reference's threefry chains, and the ledger charges
 exact integer bits, so ``ledger.per_round_uplink`` equals the reference's.
 
 The port runs on ``FLConfig.device`` ("cuda" by default).  Methods:
-``fedavg``; ``gradestc`` (variant ``full``) and ``svdfed``, each with
-``method_kw={"wire_dtype": "f32" | "bf16" | "int8"}``; and the flat
-baselines ``signsgd``, ``fedpaq`` and ``fedqclip``.  On the card GradESTC's
+``fedavg``; ``gradestc`` and ``svdfed``, each with
+``method_kw={"wire_dtype": "f32" | "bf16" | "int8"}``; the GradESTC
+ablations ``gradestc-first``, ``gradestc-all`` and ``gradestc-k`` and its
+error feedback ``gradestc-ef``; and the flat baselines ``topk``,
+``signsgd``, ``fedpaq`` and ``fedqclip``.  ``downlink_compress`` also
+sends the server's broadcast through a GradESTC codec of its own (one
+server instance, ``SERVER_CLIENT_ID``).  On the card GradESTC's
 projection, reconstruction and int8 wire, SVDFed's int8 uplink and the
 sign and quantizer wires (at every width from 2 to 8 bits) run the
 hand-written CUDA kernels, and so does the eval forward's attention (the
@@ -33,14 +37,15 @@ import numpy as np
 import torch
 
 from ..core import prng
-from ..core.codecs import round_base_key
+from ..core.codecs import SERVER_CLIENT_ID, round_base_key
 from ..core.metrics import CommLedger, host_fetch
 from ..core.policy import make_policy
 from ..data import client_batch_stream, make_task
 from ..models import model
 from ..models.config import ArchConfig
 from ..optim.optimizers import sgd
-from .compression import RoundAccountant, build_codecs, make_method, pack_round_stats
+from .compression import (RoundAccountant, build_codecs, build_downlink_codecs, make_method,
+                          pack_round_stats)
 
 __all__ = ["FLConfig", "FLResult", "run_fl", "default_tiny_arch",
            "make_local_train", "make_batched_eval", "select_round_clients"]
@@ -76,6 +81,9 @@ class FLConfig:
     lr: float = 0.05
     server_lr: float = 1.0
     alpha: Optional[float] = None    # None = IID; 0.5 / 0.1 = paper's non-IID
+    #: compress the server->client broadcast through a server-side GradESTC
+    #: codec (the paper's Sec. VI future work; beyond-paper).
+    downlink_compress: bool = False
     seed: int = 0
     eval_every: int = 5
     eval_batches: int = 4
@@ -104,6 +112,20 @@ class FLResult:
     ledger: CommLedger
     wall_s: float
     extra: Dict[str, Any] = field(default_factory=dict)
+
+    def uplink_at_loss(self, target: float) -> Optional[float]:
+        """Cumulative uplink bytes when eval loss first reaches target."""
+        for loss, b in zip(self.eval_loss, self.uplink_bytes):
+            if loss <= target:
+                return b
+        return None
+
+    def uplink_at_acc(self, target: float) -> Optional[float]:
+        """Cumulative uplink bytes when eval accuracy first reaches target."""
+        for acc, b in zip(self.eval_acc, self.uplink_bytes):
+            if acc >= target:
+                return b
+        return None
 
 
 def make_local_train(arch: ArchConfig, lr: float):
@@ -221,9 +243,16 @@ def _run_fl_loop(cfg: FLConfig, progress=None) -> FLResult:
     key_col = {p: j for j, p in enumerate(drawing)}
     path_idx_t = torch.tensor([codecs[p].path_idx for p in drawing],
                               dtype=torch.int64).to(dev, non_blocking=True)
-    acct = RoundAccountant(codecs, su.policy, group_paths, n_sel)
+    dl_codecs = (build_downlink_codecs(su.policy, group_paths, cfg.seed, use_pallas)
+                 if cfg.downlink_compress else {})
+    acct = RoundAccountant(codecs, dl_codecs, su.policy, group_paths, n_sel,
+                           downlink_enabled=cfg.downlink_compress)
     cstate = {p: c.init_client_state(C, dev) for p, c in codecs.items()}
     shared = {p: c.init_shared_state(dev) for p, c in codecs.items()}
+    # the server's codec state, without a client axis
+    dl_state = {p: tuple(x[0] for x in c.init_client_state(1, dev, [SERVER_CLIENT_ID]))
+                for p, c in dl_codecs.items()}
+    dl_shared = {p: c.init_shared_state(dev) for p, c in dl_codecs.items()}
     local_train = make_local_train(su.arch, cfg.lr)
 
     # the mean's divisor lives on the device: CUDA turns division by a host
@@ -266,6 +295,7 @@ def _run_fl_loop(cfg: FLConfig, progress=None) -> FLResult:
             del local
 
         reds: Dict[str, torch.Tensor] = {}
+        dl_reds: Dict[str, torch.Tensor] = {}
         new_params = {}
         for path in group_paths:
             codec = codecs.get(path)
@@ -277,11 +307,20 @@ def _run_fl_loop(cfg: FLConfig, progress=None) -> FLResult:
                 mean_wire = wire_acc[path] / n_sel_t
                 shared[path] = codec.update_shared(shared[path], reds[path], mean_wire)
                 recon_mean = codec.from_wire(mean_wire, p.shape).to(p.dtype)
-            new_params[path] = p + (recon_mean * cfg.server_lr).to(p.dtype)
+            avg = recon_mean * cfg.server_lr
+            dlc = dl_codecs.get(path)
+            if dlc is not None:
+                # the broadcast is the server-lr-scaled average, compressed
+                dl_state[path], rw, stats = dlc.encode(dl_state[path], dl_shared[path], None,
+                                                       dlc.to_wire(avg))
+                dl_reds[path] = dlc.reduce_stats(stats[None])
+                dl_shared[path] = dlc.update_shared(dl_shared[path], dl_reds[path], rw)
+                avg = dlc.from_wire(rw, avg.shape).to(avg.dtype)
+            new_params[path] = p + avg.to(p.dtype)
         params = new_params
 
         # the single host sync of the round
-        acct.consume(host_fetch(pack_round_stats(reds, dev)), ledger, rnd)
+        acct.consume(host_fetch(pack_round_stats(reds, dl_reds, dev)), ledger, rnd)
         round_wall.append(time.perf_counter() - t_round)
 
         if rnd % cfg.eval_every == 0 or rnd == cfg.rounds - 1:

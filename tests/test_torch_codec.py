@@ -104,14 +104,15 @@ def test_accountant_and_packing_exact(method):
     tcs = tcomp.build_codecs(tcomp.make_method(method, policy=tpol, seed=1), tpol, paths)
     assert sorted(jcs) == sorted(tcs)
     jacct = jcomp.RoundAccountant(jcs, {}, jpol, paths, n_sel=3)
-    tacct = tcomp.RoundAccountant(tcs, tpol, paths, n_sel=3)
+    tacct = tcomp.RoundAccountant(tcs, {}, tpol, paths, n_sel=3)
     jled, tled = jmetrics.CommLedger(), tmetrics.CommLedger()
     rows = ([[2, 6, 5, 16], [0, 0, 0, 4]] if method == "gradestc" else [[0], [0]])
     for rnd, row in enumerate(rows):
         reds = {p: np.asarray(row, np.int32) for p in jcs}
         jpack = np.asarray(jcomp.pack_round_stats(
             {p: jnp.asarray(v) for p, v in reds.items()}, {}))
-        tpack = tcomp.pack_round_stats({p: torch.from_numpy(v) for p, v in reds.items()}, "cpu")
+        tpack = tcomp.pack_round_stats({p: torch.from_numpy(v) for p, v in reds.items()}, {},
+                                       "cpu")
         np.testing.assert_array_equal(jpack, tpack.numpy())
         jled.begin_round()
         tled.begin_round()
@@ -125,16 +126,30 @@ def test_accountant_and_packing_exact(method):
 
 
 def test_unported_methods_raise():
+    """Every method of the reference parses as there; a name or variant
+    that neither package has raises ValueError."""
     tpol = tpolicy.make_policy(GROUPS, min_params=4096)
-    for name in ("topk", "gradestc-ef"):
-        with pytest.raises(NotImplementedError):
-            tcomp.make_method(name, policy=tpol)
-    # the flat baselines are ported
-    for name, cls in (("fedpaq", tcomp.FedPAQMethod), ("signsgd", tcomp.SignSGDMethod),
-                      ("fedqclip", tcomp.FedQClipMethod)):
+    for name, cls in (("fedavg", tcomp.FedAvgMethod), ("topk", tcomp.TopKMethod),
+                      ("fedpaq", tcomp.FedPAQMethod), ("signsgd", tcomp.SignSGDMethod),
+                      ("fedqclip", tcomp.FedQClipMethod), ("svdfed", tcomp.SVDFedMethod)):
         assert isinstance(tcomp.make_method(name, policy=tpol), cls)
-    for variant in ("first", "all", "k"):
-        with pytest.raises(NotImplementedError):
-            tcodecs.GradESTCCodec(tpol.plans["layers/w"], variant=variant)
+    jpol = jpolicy.make_policy(GROUPS, min_params=4096)
+    paths = list(GROUPS)
+    for name in ("gradestc", "gradestc-ef", "gradestc-first", "gradestc-all", "gradestc-k"):
+        tm = tcomp.make_method(name, policy=tpol)
+        jm = jcomp.make_method(name, policy=jpol)
+        assert isinstance(tm, tcomp.GradESTCMethod)
+        assert (tm.variant, tm.ef) == (jm.variant, jm.ef)
+        tcs = tcomp.build_codecs(tm, tpol, paths)
+        jcs = jcomp.build_codecs(jm, jpol, paths)
+        assert {p: type(c).__name__ for p, c in tcs.items()} == {
+            p: type(c).__name__ for p, c in jcs.items()}
+    assert type(tcomp.build_codecs(tcomp.make_method("topk"), tpol, paths)["embed"]) is (
+        tcodecs.TopKCodec)
+    for name in ("gradestc-foo", "bogus", "topk-ef"):
+        with pytest.raises(ValueError):
+            tcomp.make_method(name, policy=tpol)
+    with pytest.raises(ValueError):
+        tcodecs.GradESTCCodec(tpol.plans["layers/w"], variant="half")
     with pytest.raises(ValueError):
         tcodecs.GradESTCCodec(tpol.plans["layers/w"], wire_dtype="int4")

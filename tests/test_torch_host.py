@@ -122,7 +122,7 @@ DEFAULT_DEVICE_BUILDERS = {
     "round_base_key": lambda: tcodecs.round_base_key(0, 1),
     "init_client_state": lambda: _codec().init_client_state(2),
     "init_shared_state": lambda: _codec().init_shared_state(),
-    "pack_round_stats": lambda: tcomp.pack_round_stats({}),
+    "pack_round_stats": lambda: tcomp.pack_round_stats({}, {}),
     "params_from_jax": lambda: params_from_jax({"w": np.zeros(3, np.float32)}),
 }
 

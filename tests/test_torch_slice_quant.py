@@ -31,6 +31,7 @@ import numpy as np  # noqa: E402
 from repro.fl import simulation as jsim  # noqa: E402
 from repro.models.config import ArchConfig as JArch  # noqa: E402
 from repro_torch.core import metrics as tmetrics  # noqa: E402
+from repro_torch.core import policy as tpolicy  # noqa: E402
 from repro_torch.fl import simulation as tsim  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models.config import ArchConfig as TArch  # noqa: E402
@@ -46,16 +47,39 @@ def group_sizes():
             tmodel.param_group_shapes(TArch(**ARCH)).values()]
 
 
-def run_both(methods, use_pallas):
-    """The reference's and the port's runs of each method:
+def plans():
+    return tpolicy.make_policy(tmodel.param_group_shapes(TArch(**ARCH)),
+                               min_params=4096).plans.values()
+
+
+def compressed_plans():
+    """The plans of the groups GradESTC compresses at this config."""
+    return [plan for plan in plans() if plan.compress]
+
+
+def gradestc_round_bits(per_plan, n_sel=RUN["n_clients"]):
+    """A round's uplink when each compressed group ships ``per_plan(plan)``
+    bits a client and every other group ships raw f32."""
+    return n_sel * sum(per_plan(p) if p.compress else 32 * p.raw_scalars for p in plans())
+
+
+def init_bits(plan):
+    """A compressed group's init: every basis and its coefficients, f32."""
+    return plan.stack * 32 * plan.k * (plan.l + plan.m)
+
+
+def run_both(methods, use_pallas, **cfg_kw):
+    """The reference's and the port's runs of each method (``cfg_kw``: more
+    ``FLConfig`` fields for both):
     {method: (reference result, (port result, port host syncs))}."""
+    run = {**RUN, **cfg_kw}
     out = {}
     for m in methods:
         ref = jsim.run_fl(jsim.FLConfig(method=m, use_pallas=use_pallas, arch=JArch(**ARCH),
-                                        engine="loop", **RUN))
+                                        engine="loop", **run))
         tmetrics.reset_host_sync_count()
         res = tsim.run_fl(tsim.FLConfig(method=m, use_pallas=use_pallas, arch=TArch(**ARCH),
-                                        engine="loop", device="cpu", **RUN))
+                                        engine="loop", device="cpu", **run))
         out[m] = (ref, (res, tmetrics.host_sync_count()))
     return out
 
@@ -71,11 +95,17 @@ def runs():
     return run_both(("fedpaq",), True)["fedpaq"]
 
 
-def check_ledger(ref, res, per_round):
+def check_ledger_exact(ref, res):
+    """The port's ledger and host metrics equal the reference's."""
     assert res.ledger.per_round_uplink == ref.ledger.per_round_uplink
     assert res.ledger.uplink_bits == ref.ledger.uplink_bits
     assert res.ledger.downlink_bits == ref.ledger.downlink_bits
     assert res.uplink_bytes == ref.uplink_bytes
+    assert res.extra.get("sum_d") == ref.extra.get("sum_d")
+
+
+def check_ledger(ref, res, per_round):
+    check_ledger_exact(ref, res)
     assert res.ledger.per_round_uplink_bits == [per_round] * RUN["rounds"]
 
 
