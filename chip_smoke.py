@@ -58,7 +58,10 @@ script exits non-zero:
    checked and timed the same way at Gemma3-1B's compressed groups, summed
    per client-round; and how many elements of encode_quant's A (its
    sequential chain over l) differ in their bits from cuBLAS's, at those
-   shapes and at two off the path;
+   shapes and at two off the path; and ``ops.encode``, ``ops.decode`` and
+   ``ops.encode_quant`` over a stack that folds 4 clients' L matrices (the
+   fused engine's call: one launch each) against one call per client, bit
+   for bit, at every TinyLlama group shape;
 4. slice: ``run_fl`` (loop engine) at TinyLlama-1.1B width, cut to 2
    layers and a 4096 vocab, for gradestc on the f32, int8 and bf16 wires,
    svdfed on the f32, bf16 and int8 wires, signsgd, fedpaq (8 and 6 bits),
@@ -79,9 +82,23 @@ script exits non-zero:
    and gradestc-first's, and gradestc-downlink's broadcast under the raw
    model's; and how many of the coefficients that gradestc-int8's wire
    quantizes are exactly +-0;
+4b. fused: ``run_fl(engine="fused", scan_rounds=4)`` with phase 4's cuts,
+   5 rounds, an eval every 4 (chunks (0, 1) and (1, 5)), each run beside its
+   loop-engine twin: gradestc on the f32 and int8 wires, svdfed-int8,
+   signsgd, fedpaq (8 bits) and fedavg at TinyLlama width, and gradestc at
+   Gemma3-1B's; host syncs by source line (one ``host_fetch`` per chunk
+   and per eval, 4; otherwise only ``core/rsvd.py``'s, one batched SVD a
+   group and round), kernel launches (encode, decode, coeff_quant,
+   encode_quant and decode_wire once per group and round; the flat wire
+   kernels once per client, group and round, as in the loop; flash as in
+   the loop), per-round uplink equal to the twin's, eval loss within
+   ``LOSS_RTOL`` (fedpaq ``QUANT_LOSS_ATOL``), ms per steady round (rounds
+   1-4 and the eval of round 4, between the two evals' fetches) of both
+   engines and their ratio, and peak memory;
 5. card vs CPU: a small config through the port on both, for every method
    and wire of phase 4 (the CPU side with ``use_pallas=True``, the card's
-   block-local quantizer wire), and gradestc on Gemma3-1B's reduced config
+   block-local quantizer wire), gradestc and fedpaq on the fused engine,
+   and gradestc on Gemma3-1B's reduced config
    at seq 32 (its 16-token window masks); per-round uplink equal, eval loss
    within the CPU parity tests' tolerance (5e-4 absolute for fedpaq,
    fedqclip and topk).  The card's eval forward runs the flash kernel, the
@@ -101,7 +118,8 @@ are timed alike in turns within one call; it prints no summary lines.
 
 ``python3 chip_smoke.py --profile [METHOD]`` adds, after phase 4, a run of
 METHOD (gradestc unless named; any method of phase 4) whose round 1 is
-traced by ``torch.profiler``: the device idle share of that
+traced by ``torch.profiler``, on the loop engine and then on the fused
+engine: the device idle share of that
 round and the top ops and kernels by device time; before it, the device
 time of each CUDA kernel that one encode, encode_quant, decode,
 decode_wire, coeff_quant and coeff_dequant call launch, per TinyLlama group
@@ -245,7 +263,9 @@ def two_gemms(M, G):
 class SyncCounter:
     """Counts the card's host syncs inside the ``with`` block, keyed by the
     innermost line of the port (``src/repro_torch``) on the stack: torch's
-    sync debug mode in "warn" raises one warning per synchronizing call."""
+    sync debug mode in "warn" raises one warning per synchronizing call.
+    It does not see a wait on an event (the fused engine's deferred stats
+    fetch), so ``torch.cuda.Event.synchronize`` is counted here too."""
 
     def __enter__(self):
         self.sites = collections.Counter()
@@ -254,19 +274,30 @@ class SyncCounter:
         warnings.simplefilter("always")
         self._show = warnings.showwarning
         warnings.showwarning = self._on_warning
+        self._event_sync = torch.cuda.Event.synchronize
+        counter = self
+
+        def event_sync(event):
+            counter._count()
+            return counter._event_sync(event)
+
+        torch.cuda.Event.synchronize = event_sync
         torch.cuda.set_sync_debug_mode("warn")
         return self
 
     def __exit__(self, *exc):
         torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.Event.synchronize = self._event_sync
         self._cw.__exit__(*exc)
         return False
 
     def _on_warning(self, message, category, filename, lineno, file=None, line=None):
         if "synchronizing CUDA operation" not in str(message):
             return self._show(message, category, filename, lineno, file, line)
+        self._count(f"{filename}:{lineno}")
+
+    def _count(self, site: str = "torch.cuda.Event.synchronize") -> None:
         src = ROOT / "src"
-        site = f"{filename}:{lineno}"
         for fr in reversed(traceback.extract_stack()):
             if "repro_torch" in fr.filename:
                 site = f"{Path(fr.filename).resolve().relative_to(src)}:{fr.lineno}"
@@ -1444,17 +1475,161 @@ def phase_compressor_api(plan, d: int = 16, rounds: int = 4) -> None:
                                  f"{formula}), launches {counts}, init {init}")
 
 
-def run_slice(method: str, arch, device: str, progress=None, **kw):
+def phase_client_fold(shapes, clients: int = 4) -> None:
+    """The fused engine's codec call: ``ops.encode``, ``ops.decode`` and
+    ``ops.encode_quant`` over (clients, L, ...) stacks fold the clients into
+    the kernels' stack axis, one launch each, encode's split of l planned
+    for one client's L.  Each must equal one call per client bit for bit."""
+    from repro_torch.kernels import gradestc_encode, ops
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for shape in shapes:
+        L, l, m, k = shape
+        pairs = [random_basis(shape, gen) for _ in range(clients)]
+        M = torch.stack([p[0] for p in pairs])
+        G = torch.stack([p[1] for p in pairs])
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        A, E = ops.encode(M, G)
+        Ghat = ops.decode(M, A)
+        codes, scales, Eq = ops.encode_quant(M, G)
+        torch.cuda.synchronize()
+        counts = {n: c for n, c in ops.launch_counts().items() if c}
+        per = [(ops.encode(M[c], G[c]), ops.decode(M[c], A[c]), ops.encode_quant(M[c], G[c]))
+               for c in range(clients)]
+        torch.cuda.synchronize()
+        same = {
+            "A": all(torch.equal(A[c], p[0][0]) for c, p in enumerate(per)),
+            "E": all(torch.equal(E[c], p[0][1]) for c, p in enumerate(per)),
+            "Ghat": all(torch.equal(Ghat[c], p[1]) for c, p in enumerate(per)),
+            "codes": all(torch.equal(codes[c], p[2][0]) for c, p in enumerate(per)),
+            "scales": all(torch.equal(scales[c], p[2][1]) for c, p in enumerate(per)),
+            "E (int8)": all(torch.equal(Eq[c], p[2][2]) for c, p in enumerate(per)),
+        }
+        plan, folded = gradestc_encode.split_plan(L, l, m), gradestc_encode.split_plan(
+            clients * L, l, m)
+        log("kernels", f"{clients} clients folded at L={L} l={l} m={m} k={k}: one launch each "
+                       f"{counts}; equal to per-client calls bit for bit {same}; encode's split "
+                       f"(S, LC) planned for L {plan} (for {clients}L it would be {folded})")
+        if not all(same.values()) or counts != {"encode": 1, "decode": 1, "encode_quant": 1}:
+            raise AssertionError(f"client fold at {shape}: {same}, launches {counts}")
+
+
+#: phase 4b's runs, each beside its loop-engine twin: (label, method,
+#: method_kw); the gemma3 run at Gemma3-1B width
+FUSED_RUNS = (("gradestc", "gradestc", {"wire_dtype": "f32"}),
+              ("gradestc-int8", "gradestc", {"wire_dtype": "int8"}),
+              ("svdfed-int8", "svdfed", {"wire_dtype": "int8"}),
+              ("signsgd", "signsgd", {}), ("fedpaq", "fedpaq", {}), ("fedavg", "fedavg", {}),
+              ("gemma3-gradestc", "gradestc", {}))
+
+
+def phase_fused(arch, policy, gemma, gemma_policy, n_clients: int = 4) -> dict:
+    """Phase 4b: each FUSED_RUNS entry on the fused engine (scan_rounds 4)
+    and on the loop, 5 rounds with an eval every 4, so the fused chunks are
+    (0, 1) and (1, 5).  Checks syncs, launches, uplink and eval loss against
+    the twin; returns {label: {engine: numbers}}."""
+    from repro_torch.core import metrics
+    from repro_torch.fl.engine import plan_chunks
+    from repro_torch.kernels import ops
+
+    rounds, eval_every, scan = 5, 4, 4
+    chunks = plan_chunks(rounds, eval_every, scan)
+    kw = dict(n_clients=n_clients, participation=1.0, rounds=rounds, local_steps=2, batch=4,
+              seq=256, eval_every=eval_every, scan_rounds=scan)
+    gemma_kw = {**kw, "batch": 2, "seq": 1024}
+    out = {}
+    for label, method, mkw in FUSED_RUNS:
+        a, pol, rkw = (gemma, gemma_policy, gemma_kw) if label.startswith("gemma3") else (
+            arch, policy, kw)
+        groups = (len(pol.plans) if method in FLAT_METHODS
+                  else sum(p.compress for p in pol.plans.values()))
+        runs, row = {}, {}
+        for engine in ("loop", "fused"):
+            marks = []
+
+            def at_eval(rnd, _):
+                # the eval's fetch has just drained the stream
+                marks.append(time.perf_counter())
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            metrics.reset_host_sync_count()
+            with SyncCounter() as syncs:
+                res = run_slice(method, a, "cuda", progress=at_eval, engine=engine,
+                                method_kw=mkw, **rkw)
+                torch.cuda.synchronize()
+            runs[engine] = res
+            launches = ops.launch_counts()
+            evals = len(res.eval_rounds)
+            fetches = (len(chunks) if engine == "fused" else rounds) + evals
+            check_syncs(f"{label} {engine}", method, syncs.sites, metrics.host_sync_count(),
+                        fetches)
+            rsvd = sum(n for site, n in syncs.sites.items()
+                       if site.startswith("repro_torch/core/rsvd.py"))
+            per_group = 1 if engine == "fused" else n_clients
+            want = {name: 0 for name in ops.KERNELS}
+            for name in RUN_KERNELS.get(label, ()):
+                flat = name in ("sign_pack", "sign_unpack", "quant_pack", "unpack_dequant")
+                want[name] = groups * rounds * (n_clients if flat else per_group)
+            want["flash_attention"] = a.n_layers * 4 * evals      # FLConfig.eval_batches
+            row[engine] = {
+                "ms_round": 1e3 * (marks[1] - marks[0]) / (rounds - 1),
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "host_fetch": metrics.host_sync_count(), "rsvd_syncs": rsvd,
+                "launches": {n: c for n, c in launches.items() if c},
+            }
+            if launches != want:
+                raise AssertionError(f"{label} {engine}: launches {launches}, expected {want}")
+            if not all(math.isfinite(x) for x in res.eval_loss):
+                raise AssertionError(f"{label} {engine}: non-finite eval loss {res.eval_loss}")
+        loop, fused = runs["loop"], runs["fused"]
+        dif = max(abs(x - y) for x, y in zip(fused.eval_loss, loop.eval_loss))
+        rel = max(abs(x - y) / abs(y) for x, y in zip(fused.eval_loss, loop.eval_loss))
+        ratio = row["fused"]["ms_round"] / row["loop"]["ms_round"]
+        log("fused", f"{label}: ms/round (rounds 1-4 and an eval) fused "
+                     f"{row['fused']['ms_round']:.1f} loop {row['loop']['ms_round']:.1f} ratio "
+                     f"{ratio:.3f}; peak max_memory_allocated fused {row['fused']['peak_bytes']} B "
+                     f"loop {row['loop']['peak_bytes']} B; host_fetch {row['fused']['host_fetch']} "
+                     f"(loop {row['loop']['host_fetch']}), core/rsvd.py syncs "
+                     f"{row['fused']['rsvd_syncs']} (loop {row['loop']['rsvd_syncs']}); launches "
+                     f"fused {row['fused']['launches']} loop {row['loop']['launches']}; chunks "
+                     f"{fused.extra['chunks']} {chunks}; per-round uplink "
+                     f"{fused.ledger.per_round_uplink} (equal {fused.ledger.per_round_uplink_bits == loop.ledger.per_round_uplink_bits}); "
+                     f"eval loss fused {fused.eval_loss} loop {loop.eval_loss} rel {rel:.3e} "
+                     f"abs {dif:.3e}; wall fused {fused.wall_s:.1f} s loop {loop.wall_s:.1f} s")
+        if fused.extra["chunks"] != len(chunks) or fused.extra["engine"] != "fused":
+            raise AssertionError(f"{label}: fused extra {fused.extra}")
+        if (fused.ledger.per_round_uplink_bits != loop.ledger.per_round_uplink_bits
+                or fused.ledger.downlink_bits != loop.ledger.downlink_bits
+                or fused.extra.get("sum_d") != loop.extra.get("sum_d")):
+            raise AssertionError(f"{label}: fused ledger {fused.ledger.per_round_uplink_bits} "
+                                 f"loop {loop.ledger.per_round_uplink_bits}")
+        if method in ATOL_METHODS and dif > QUANT_LOSS_ATOL:
+            raise AssertionError(f"{label}: fused eval loss differs by {dif:.3e}")
+        if method not in ATOL_METHODS and rel > LOSS_RTOL:
+            raise AssertionError(f"{label}: fused eval loss differs by {rel:.3e}")
+        if method.startswith("gradestc") and (
+                row["fused"]["rsvd_syncs"] * n_clients != row["loop"]["rsvd_syncs"]):
+            raise AssertionError(f"{label}: core/rsvd.py syncs fused {row['fused']['rsvd_syncs']}"
+                                 f", loop {row['loop']['rsvd_syncs']}")
+        out[label] = row
+    return out
+
+
+def run_slice(method: str, arch, device: str, progress=None, engine: str = "loop", **kw):
     from repro_torch.fl.simulation import FLConfig, run_fl
 
-    cfg = FLConfig(method=method, arch=arch, device=device, engine="loop", **kw)
+    cfg = FLConfig(method=method, arch=arch, device=device, engine=engine, **kw)
     return run_fl(cfg, progress)
 
 
-def phase_profile(method: str, arch, kw) -> None:
+def phase_profile(method: str, arch, kw, engine: str = "loop") -> None:
     """``--profile``: trace round 1 (a steady round, with its eval) of a
-    ``method`` run at slice width; print the device-busy share of that
-    window, the top ops and the top kernels by device time."""
+    ``method`` run at slice width on ``engine`` (on the fused engine, with an
+    eval every round, round 1 is a chunk of its own); print the device-busy
+    share of that window, the top ops and the top kernels by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1468,7 +1643,7 @@ def phase_profile(method: str, arch, kw) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         run_slice(method, arch, "cuda", **{**kw, "rounds": 2, "eval_every": 1},
-                  progress=on_round_end)
+                  progress=on_round_end, engine=engine)
 
     def dev(e):
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
@@ -1481,7 +1656,8 @@ def phase_profile(method: str, arch, kw) -> None:
                  key=dev, reverse=True)
     busy_ms = sum(dev(e) for e in kernels) / 1e3
     window_ms = 1e3 * (marks[1] - marks[0])
-    log("profile", f"{method} round 1 + eval, profiler on: wall {window_ms:.1f} ms, kernels busy "
+    log("profile", f"{method} ({engine}) round 1 + eval, profiler on: wall {window_ms:.1f} ms, "
+                   f"kernels busy "
                    f"{busy_ms:.1f} ms, device idle share {1 - busy_ms / window_ms:.3f}")
     for kind, rows in (("op", ops[:12]), ("kernel", kernels[:12])):
         for e in rows:
@@ -1624,6 +1800,7 @@ def main() -> int:
     tot.update(wtot)
     bound_by.update(wbound_by)
     log_gemm_totals("tinyllama", tot, ("encode", "encode_quant", "decode", "decode_wire"))
+    phase_client_fold(sorted(group_counts))
     gemma = gemma_arch()
     gemma_policy = make_policy(model.param_group_shapes(gemma), min_params=4096)
     gemma_counts = collections.Counter((p.stack, p.l, p.m, p.k)
@@ -1745,9 +1922,12 @@ def main() -> int:
     log("slice", "uplink / fedavg: " + ", ".join(
         f"{label} {b / raw_bits:.4f}" for label, b in bits.items()
         if not label.startswith("gemma3")) + f"; gemma3-gradestc / gemma3-fedavg {gemma_ratio:.4f}")
+    # ---- 4b. the fused engine beside its loop twin
+    phase_fused(arch, policy, gemma, gemma_policy, n_clients)
     if profile_run:
         profile_kernels(group_counts, flat_counts)
-        phase_profile(profile_method, arch, kw)
+        for engine in ("loop", "fused"):
+            phase_profile(profile_method, arch, kw, engine)
 
     # ---- 5. card vs CPU at a small config, both through the port
     from repro_torch.configs import get_config
@@ -1755,6 +1935,8 @@ def main() -> int:
     small = dict(rounds=3, n_clients=3, local_steps=1, batch=2, seq=16, eval_every=2)
     parity = [(label, method, mkw, small_arch(), {**small, **ckw})
               for label, method, mkw, ckw in SLICE_RUNS]
+    parity += [(f"{method} fused", method, {}, small_arch(), {**small, "engine": "fused"})
+               for method in ("gradestc", "fedpaq")]
     parity.append(("gemma3-reduced gradestc", "gradestc", {}, get_config("gemma3-1b").reduced(),
                    {**small, "seq": 32}))
     for label, method, mkw, a, skw in parity:

@@ -13,8 +13,13 @@ turns the reduced stats into exact Python-int uplink bits (Formula 14).
 
 Client state is a flat tuple of tensors with a leading client axis (``()``
 for a stateless codec): the loop engine indexes and writes back each of
-them per client, so a wrapper appends its tensors to the inner codec's
-tuple rather than nesting it.
+them per client, the fused engine gathers and scatters the round's
+selected clients, so a wrapper appends its tensors to the inner codec's
+tuple rather than nesting it.  ``encode_clients`` is ``encode`` over a
+leading client axis (the reference's ``vmap`` of ``encode``): the matrix
+codecs' ``encode`` is written over leading axes, so one call serves all
+the clients; the flat codecs' kernels take one flat vector with one scale,
+so their ``encode_clients`` loops over the clients.
 
 PRNG streams are ``fold_in`` chains (:mod:`repro_torch.core.prng`), the
 reference's exactly: the quantizers draw from :func:`round_base_key`
@@ -87,6 +92,10 @@ class Codec:
     def to_wire(self, delta: torch.Tensor) -> torch.Tensor:
         return delta
 
+    def to_wire_clients(self, delta: torch.Tensor) -> torch.Tensor:
+        """``to_wire`` of each client's delta ``(C, ...)`` -> ``(C, *wire)``."""
+        return delta
+
     def from_wire(self, wire: torch.Tensor, shape) -> torch.Tensor:
         return wire.reshape(shape)
 
@@ -94,8 +103,21 @@ class Codec:
         """-> (cstate', recon_wire, stats int32 (client_stats_len,)).  ``key``
         is the client's draw key for the codecs that draw (``draws``);
         GradESTC draws from its state's keys, SVDFed and signSGD draw
-        nothing, and the loop engine passes them ``None``."""
+        nothing, and the engines pass them ``None``."""
         raise NotImplementedError
+
+    def encode_clients(self, cstate, shared, keys, wire):
+        """``encode`` over a leading client axis: every state tensor, ``keys``
+        (``(C, 2)`` or ``None``) and ``wire`` carry it -> (cstate', recon
+        ``(C, *wire)``, stats ``(C, client_stats_len)``).  Here one
+        ``encode`` per client; a codec whose ``encode`` takes leading axes
+        makes it one call."""
+        outs = [self.encode(tuple(x[i] for x in cstate), shared,
+                            None if keys is None else keys[i], wire[i])
+                for i in range(wire.shape[0])]
+        cstate2 = tuple(torch.stack(xs) for xs in zip(*(o[0] for o in outs)))
+        return (cstate2, torch.stack([o[1] for o in outs]),
+                torch.stack([o[2] for o in outs]))
 
     def reduce_stats(self, stats: torch.Tensor) -> torch.Tensor:
         return torch.zeros((0,), dtype=torch.int32, device=stats.device)
@@ -124,6 +146,9 @@ class _FlatCodec(Codec):
 
     def to_wire(self, delta: torch.Tensor) -> torch.Tensor:
         return delta.reshape(-1).float()
+
+    def to_wire_clients(self, delta: torch.Tensor) -> torch.Tensor:
+        return delta.reshape(delta.shape[0], -1).float()
 
 
 class TopKCodec(_FlatCodec):
@@ -206,17 +231,29 @@ class FedQClipCodec(FedPAQCodec):
 
 
 class _MatrixCodec(Codec):
-    """Stacked ``(L, l, m)`` segment-matrix layout (columns = segments)."""
+    """Stacked ``(L, l, m)`` segment-matrix layout (columns = segments).
+    ``encode`` works over leading axes of the client state and the wire
+    (per-client reductions run over the last three axes), so
+    ``encode_clients`` is one call of it."""
 
     def __init__(self, plan: LayerPlan, path_idx: int = 0):
         super().__init__(path_idx)
         self.plan = plan
 
-    def to_wire(self, delta: torch.Tensor) -> torch.Tensor:
+    def _wire(self, delta: torch.Tensor, lead) -> torch.Tensor:
         plan = self.plan
         m = plan.n // plan.l
-        return (delta.reshape(plan.stack, m, plan.l).transpose(-1, -2)
+        return (delta.reshape(*lead, plan.stack, m, plan.l).transpose(-1, -2)
                 .float().contiguous())
+
+    def to_wire(self, delta: torch.Tensor) -> torch.Tensor:
+        return self._wire(delta, ())
+
+    def to_wire_clients(self, delta: torch.Tensor) -> torch.Tensor:
+        return self._wire(delta, delta.shape[:1])
+
+    def encode_clients(self, cstate, shared, keys, wire):
+        return self.encode(cstate, shared, keys, wire)
 
     def from_wire(self, wire: torch.Tensor, shape) -> torch.Tensor:
         plan = self.plan
@@ -253,7 +290,10 @@ class SVDFedCodec(_MatrixCodec):
     ``wire_dtype`` "int8" runs the fused encode_quant / decode_wire kernels
     on the card (the residual is against the shipped coefficients); "f32"
     and "bf16" are two GEMMs around ``ops.coeff_roundtrip``.  Stats per
-    client: ``[is_refit_round, wants_refit_next]``, max-reduced.
+    client: ``[is_refit_round, wants_refit_next]``, max-reduced.  Over a
+    client axis the int8 kernels take the shared M broadcast to every
+    client's rows (a copy of C x (L, l, k), small beside the (C, L, l, m)
+    wire they read), so each launches once per group and round.
     """
 
     client_stats_len = 2
@@ -275,18 +315,20 @@ class SVDFedCodec(_MatrixCodec):
 
     def encode(self, cstate, shared, key, wire):
         M, _, refit = shared
+        per_client = (-3, -2, -1)
         if self.wire_dtype == "int8":
-            codes, scales, E = ops.encode_quant(M, wire)
-            Ghat = ops.decode_wire(M, codes, scales)
-            err = (E.float() ** 2).sum()
+            Mc = M.expand(*wire.shape[:-1], M.shape[-1]).contiguous()
+            codes, scales, E = ops.encode_quant(Mc, wire)
+            Ghat = ops.decode_wire(Mc, codes, scales)
+            err = (E.float() ** 2).sum(per_client)
         else:
             A = ops.coeff_roundtrip(M.mT @ wire, self.wire_dtype)
             Ghat = M @ A
-            err = ((wire - Ghat).float() ** 2).sum()
+            err = ((wire - Ghat).float() ** 2).sum(per_client)
         recon = torch.where(refit, wire, Ghat)
-        den = (wire.float() ** 2).sum().clamp_min(1e-30)
+        den = (wire.float() ** 2).sum(per_client).clamp_min(1e-30)
         want = ~refit & (err > (self.gamma / 100.0) ** 2 * den)
-        return (), recon, torch.stack([refit, want]).to(torch.int32)
+        return (), recon, torch.stack([refit.expand_as(want), want], -1).to(torch.int32)
 
     def reduce_stats(self, stats: torch.Tensor) -> torch.Tensor:
         return stats.amax(0).to(torch.int32)
@@ -376,12 +418,13 @@ class GradESTCCodec(_MatrixCodec):
             ge.CompressorState(M=M, key=keys, initialized=inited), wire,
             k=plan.k, d=d, d_max=plan.d_max, wire_dtype=self.wire_dtype)
         Ghat = ge.reconstruct(st2.M, payload.coeffs)
-        # d_r on update branches only; inits are counted through n_upd
+        # d_r on update branches only; inits are counted through n_upd; each
+        # reduces over the layer axis alone (a client axis stays)
         upd_dr = torch.where(payload.init, 0, stats.d_r).to(torch.int32)
         out_stats = torch.stack([
-            upd_dr.max(), (~payload.init).sum().to(torch.int32), upd_dr.sum(),
-            d.to(torch.int32),
-        ]).to(torch.int32)
+            upd_dr.amax(-1), (~payload.init).sum(-1), upd_dr.sum(-1),
+            d.expand(upd_dr.shape[:-1]),
+        ], -1).to(torch.int32)
         return (st2.M, st2.key, torch.ones_like(inited)), Ghat, out_stats
 
     def reduce_stats(self, stats: torch.Tensor) -> torch.Tensor:
@@ -440,14 +483,23 @@ class EFCodec(Codec):
     def to_wire(self, delta):
         return self.inner.to_wire(delta)
 
+    def to_wire_clients(self, delta):
+        return self.inner.to_wire_clients(delta)
+
     def from_wire(self, wire, shape):
         return self.inner.from_wire(wire, shape)
 
-    def encode(self, cstate, shared, key, wire):
+    def _feedback(self, inner_encode, cstate, shared, key, wire):
         *inner_st, mem = cstate
         injected = wire + mem
-        inner_st2, recon, stats = self.inner.encode(tuple(inner_st), shared, key, injected)
+        inner_st2, recon, stats = inner_encode(tuple(inner_st), shared, key, injected)
         return (*inner_st2, injected - recon), recon, stats
+
+    def encode(self, cstate, shared, key, wire):
+        return self._feedback(self.inner.encode, cstate, shared, key, wire)
+
+    def encode_clients(self, cstate, shared, keys, wire):
+        return self._feedback(self.inner.encode_clients, cstate, shared, keys, wire)
 
     def reduce_stats(self, stats):
         return self.inner.reduce_stats(stats)

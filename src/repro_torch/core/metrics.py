@@ -4,26 +4,56 @@ Port of ``repro/core/metrics.py``.  Totals accumulate as exact Python-int
 bits (``charge_uplink_bits``); the byte views divide by 8 on read.  Every
 blocking device-to-host transfer of the round loop goes through
 :func:`host_fetch`, which counts it: the loop engine makes one per round
-plus one per eval.
+plus one per eval, the fused engine one per chunk plus one per eval.  A
+fetch may be started early (:func:`start_fetch`) and waited on later.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
-__all__ = ["CommLedger", "host_fetch", "host_sync_count", "reset_host_sync_count"]
+__all__ = ["CommLedger", "PendingFetch", "host_fetch", "start_fetch", "host_sync_count",
+           "reset_host_sync_count"]
 
 _HOST_SYNCS = 0
 
 
-def host_fetch(x: torch.Tensor) -> np.ndarray:
-    """Copy a tensor to host numpy (one ``.cpu()``), counting the sync."""
+class PendingFetch(NamedTuple):
+    """A device-to-host copy in flight: ``host`` is filled once ``done``
+    (an event after the copy on the card; ``None`` for a CPU tensor, which
+    is already on the host) has completed."""
+
+    host: torch.Tensor
+    done: Optional[torch.cuda.Event]
+
+
+def start_fetch(x: torch.Tensor) -> PendingFetch:
+    """Start copying ``x`` to the host without waiting for the device: on
+    the card into pinned memory, behind an event on the current stream.
+    :func:`host_fetch` of the result waits for the copy alone (not for work
+    issued after it) and counts the sync."""
+    if not x.is_cuda:
+        return PendingFetch(x.detach(), None)
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return PendingFetch(host, done)
+
+
+def host_fetch(x: Union[torch.Tensor, PendingFetch]) -> np.ndarray:
+    """Copy a tensor to host numpy (one ``.cpu()``), or wait for a started
+    fetch, counting the sync."""
     global _HOST_SYNCS
     _HOST_SYNCS += 1
+    if isinstance(x, PendingFetch):
+        if x.done is not None:
+            x.done.synchronize()
+        return x.host.numpy()
     return x.detach().cpu().numpy()
 
 

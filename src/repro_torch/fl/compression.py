@@ -22,7 +22,7 @@ from ..core.codecs import (Codec, EFCodec, FedPAQCodec, FedQClipCodec, GradESTCC
 from ..core.policy import CompressionPolicy, LayerPlan
 
 __all__ = ["make_method", "path_index", "build_codecs", "build_downlink_codecs",
-           "pack_round_stats", "RoundAccountant", "FedAvgMethod", "TopKMethod",
+           "apply_downlink", "pack_round_stats", "RoundAccountant", "FedAvgMethod", "TopKMethod",
            "GradESTCMethod", "SVDFedMethod", "SignSGDMethod", "FedPAQMethod",
            "FedQClipMethod"]
 
@@ -198,6 +198,23 @@ def build_downlink_codecs(policy: CompressionPolicy, group_paths, seed: int,
     seeded apart from the uplink codecs."""
     method = make_method("gradestc", policy=policy, seed=seed + 101)
     return build_codecs(method, policy, group_paths, use_pallas)
+
+
+def apply_downlink(dl_codecs: Dict[str, Codec], dl_state, dl_shared,
+                   avg: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The compressed downlink, once a round: the server encodes each
+    group's server-lr-scaled average through its one instance
+    (``SERVER_CLIENT_ID``); every client mirrors the shared decompressor, so
+    the server applies the *reconstruction*.  ``avg``, ``dl_state`` and
+    ``dl_shared`` are updated in place; returns the reduced stats by group."""
+    dl_reds: Dict[str, torch.Tensor] = {}
+    for path, dlc in dl_codecs.items():
+        dl_state[path], rw, stats = dlc.encode(dl_state[path], dl_shared[path], None,
+                                               dlc.to_wire(avg[path]))
+        dl_reds[path] = dlc.reduce_stats(stats[None])
+        dl_shared[path] = dlc.update_shared(dl_shared[path], dl_reds[path], rw)
+        avg[path] = dlc.from_wire(rw, avg[path].shape).to(avg[path].dtype)
+    return dl_reds
 
 
 def pack_round_stats(reds: Dict[str, torch.Tensor], dl_reds: Dict[str, torch.Tensor],

@@ -23,8 +23,9 @@ flash kernel; local training keeps the plain attention); there is no plain
 path there.  ``use_pallas`` resolves as in the reference: ``None``
 means the kernels on the card and the plain versions on the CPU, where
 FedPAQ/FedQClip then run the paper's global quantizer and
-``use_pallas=True`` gives the card's block-local wire.  The fused K-round
-engine is ROADMAP A8.
+``use_pallas=True`` gives the card's block-local wire.
+``engine="fused"`` runs the K-round client-batched engine
+(:mod:`repro_torch.fl.engine`) on one device; the default stays the loop.
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ from ..data import client_batch_stream, make_task
 from ..models import model
 from ..models.config import ArchConfig
 from ..optim.optimizers import sgd
-from .compression import (RoundAccountant, build_codecs, build_downlink_codecs, make_method,
-                          pack_round_stats)
+from .compression import (RoundAccountant, apply_downlink, build_codecs, build_downlink_codecs,
+                          make_method, pack_round_stats)
 
 __all__ = ["FLConfig", "FLResult", "run_fl", "default_tiny_arch",
            "make_local_train", "make_batched_eval", "select_round_clients"]
@@ -92,8 +93,15 @@ class FLConfig:
     policy_overrides: Dict[str, tuple] = field(default_factory=dict)
     coverage_target: float = 0.90
     min_params: int = 4096
-    #: only the per-client loop engine is ported; "fused" is ROADMAP A8.
+    #: "loop" = the per-client loop (the parity oracle); "fused" = the
+    #: K-round engine (``fl/engine.py``): clients batched through local
+    #: training and the matrix codecs, one stats fetch per chunk.  Every
+    #: method and option runs on either.
     engine: str = "loop"
+    #: chunk length K of the fused engine: one packed-stats host fetch per K
+    #: rounds.  Chunks never span an eval round, so trajectories and the
+    #: ledger do not depend on K.
+    scan_rounds: int = 8
     #: None: True on CUDA (the kernels), False on the CPU (the plain
     #: versions, and the paper's global quantizer for FedPAQ/FedQClip).
     #: ``False`` with a CUDA device is refused (no plain path on the card);
@@ -101,6 +109,9 @@ class FLConfig:
     use_pallas: Optional[bool] = None
     #: where the run lives: "cuda" (default) or "cpu".
     device: str = "cuda"
+    #: data-parallel device count of the fused engine; None/1 = one device
+    #: (more is the sharded engine, ROADMAP A11, not ported).
+    devices: Optional[int] = None
 
 
 @dataclass
@@ -208,11 +219,11 @@ def _setup_run(cfg: FLConfig) -> _RunSetup:
 
 
 def _check_config(cfg: FLConfig) -> None:
-    if cfg.engine == "fused":
+    if cfg.engine not in ("fused", "loop"):
+        raise ValueError(f"unknown engine {cfg.engine!r} (want 'fused' or 'loop')")
+    if int(cfg.devices or 1) > 1:
         raise NotImplementedError(
-            "engine='fused' is not ported yet (ROADMAP A8); use engine='loop'")
-    if cfg.engine != "loop":
-        raise ValueError(f"unknown engine {cfg.engine!r}")
+            f"devices={cfg.devices}: the sharded engine is not ported yet (ROADMAP A11)")
     dev = torch.device(cfg.device)
     if dev.type == "cuda" and cfg.use_pallas is False:
         raise ValueError("use_pallas=False on a CUDA device: the port has no "
@@ -224,6 +235,10 @@ def _check_config(cfg: FLConfig) -> None:
 
 def run_fl(cfg: FLConfig, progress: Optional[Callable[[int, dict], None]] = None) -> FLResult:
     _check_config(cfg)
+    if cfg.engine == "fused":
+        from .engine import run_fl_fused
+
+        return run_fl_fused(cfg, progress)
     return _run_fl_loop(cfg, progress)
 
 
@@ -295,8 +310,7 @@ def _run_fl_loop(cfg: FLConfig, progress=None) -> FLResult:
             del local
 
         reds: Dict[str, torch.Tensor] = {}
-        dl_reds: Dict[str, torch.Tensor] = {}
-        new_params = {}
+        avg: Dict[str, torch.Tensor] = {}
         for path in group_paths:
             codec = codecs.get(path)
             p = params[path]
@@ -307,17 +321,13 @@ def _run_fl_loop(cfg: FLConfig, progress=None) -> FLResult:
                 mean_wire = wire_acc[path] / n_sel_t
                 shared[path] = codec.update_shared(shared[path], reds[path], mean_wire)
                 recon_mean = codec.from_wire(mean_wire, p.shape).to(p.dtype)
-            avg = recon_mean * cfg.server_lr
-            dlc = dl_codecs.get(path)
-            if dlc is not None:
-                # the broadcast is the server-lr-scaled average, compressed
-                dl_state[path], rw, stats = dlc.encode(dl_state[path], dl_shared[path], None,
-                                                       dlc.to_wire(avg))
-                dl_reds[path] = dlc.reduce_stats(stats[None])
-                dl_shared[path] = dlc.update_shared(dl_shared[path], dl_reds[path], rw)
-                avg = dlc.from_wire(rw, avg.shape).to(avg.dtype)
-            new_params[path] = p + avg.to(p.dtype)
-        params = new_params
+            avg[path] = recon_mean * cfg.server_lr
+        # the broadcast is the server-lr-scaled average, compressed
+        dl_reds = apply_downlink(dl_codecs, dl_state, dl_shared, avg)
+        # each average is dropped once applied, so the old and new models and
+        # the averages are never all alive at once
+        params = {path: params[path] + avg.pop(path).to(params[path].dtype)
+                  for path in group_paths}
 
         # the single host sync of the round
         acct.consume(host_fetch(pack_round_stats(reds, dl_reds, dev)), ledger, rnd)

@@ -80,15 +80,20 @@ def _shapes(kernel: str, M: torch.Tensor, G: torch.Tensor) -> Tuple[int, int, in
     return L, l, G.shape[2], k
 
 
-def encode(M: torch.Tensor, G: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def encode(M: torch.Tensor, G: torch.Tensor, plan_stack: int | None = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """M (L, l, k), G (L, l, m), both f32 on one CUDA device ->
-    (A (L, k, m), E (L, l, m))."""
+    (A (L, k, m), E (L, l, m)).  The split of l is planned for a stack of
+    ``plan_stack`` matrices (default L): a stack that folds C clients' L
+    layers passes one client's L, so that every matrix gets the split, and
+    so the bits, of a call for one client (the split depends on the shapes
+    alone, each matrix's partials on nothing but the split)."""
     L, l, m, k = _shapes("encode", M, G)
     A = torch.empty((L, k, m), dtype=torch.float32, device=G.device)
     E = torch.empty_like(G)
     if L * l * m == 0:
         return A.zero_(), E
-    S, LC = split_plan(L, l, m)
+    S, LC = split_plan(L if plan_stack is None else plan_stack, l, m)
     P = torch.empty((L, S, k, m), dtype=torch.float32, device=G.device)   # the partials
     with _build.device(G):
         _build.launch("encode", "gradestc_encode_f32", M.data_ptr(), G.data_ptr(), A.data_ptr(),

@@ -10,9 +10,11 @@ the plain version in ``ref``; a CUDA tensor goes to the hand-written
 kernel, or the call raises.  There is no fall-back on the card: a shape or
 dtype the kernel does not take is an error, not a silent plain path.
 
-On the card the coefficient operands are stacks ``(L, l, k)``/``(L, l,
-m)``/``(L, k, m)``, one kernel call per stack (the CPU path also takes
-single matrices).  The kernels tile l in shared memory and mask the ragged
+On the card the coefficient operands are stacks ``(..., L, l, k)``/``(...,
+L, l, m)``/``(..., L, k, m)``, one kernel call per stack: leading axes (the
+fused engine's clients) fold into the kernels' stack axis, and encode plans
+its split of l for one stack of L, so a folded call gives each matrix the
+bits of a call per stack (the CPU path also takes single matrices).  The kernels tile l in shared memory and mask the ragged
 m edge, so the reference's VMEM fit rule (``choose_block_m``), its
 fall-back to the oracle for large l and its column padding have no
 counterpart here.
@@ -69,33 +71,48 @@ def _route(*xs: torch.Tensor) -> str:
     raise ValueError(f"operands on mixed or unsupported devices: {[x.device for x in xs]}")
 
 
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """``(..., L, r, c)`` -> ``(prod(...) L, r, c)``, a view of a contiguous
+    stack; a tensor of rank 3 or less passes as it is (the kernel's checks
+    see it)."""
+    return x.reshape(-1, *x.shape[-2:]) if x.dim() > 3 else x
+
+
+def _unfold(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """The kernel's ``(prod(...) L, r, c)`` output back under ``like``'s
+    leading axes."""
+    return x.reshape(*like.shape[:-2], *x.shape[-2:])
+
+
 def encode(M: torch.Tensor, G: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused A = M^T G, E = G - M A."""
     if _route(M, G) == "cpu":
         return ref.encode_ref(M, G)
-    return gradestc_encode.encode(M, G)
+    plan_stack = M.shape[-3] if M.dim() > 3 else None
+    A, E = gradestc_encode.encode(_fold(M), _fold(G), plan_stack)
+    return _unfold(A, G), _unfold(E, G)
 
 
 def decode(M: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     """Ghat = M A."""
     if _route(M, A) == "cpu":
         return ref.decode_ref(M, A)
-    return gradestc_decode.decode(M, A)
+    return _unfold(gradestc_decode.decode(_fold(M), _fold(A)), A)
 
 
 def coeff_quant(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """int8 wire of ``A (..., k, m)``: (codes, scales, ship)."""
     if _route(A) == "cpu":
         return ref.coeff_quant_ref(A)
-    return wire.coeff_quant(A)
+    return tuple(_unfold(x, A) for x in wire.coeff_quant(_fold(A)))
 
 
 def coeff_dequant(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """int8 codes ``(..., k, m)`` + scales ``(..., k, ceil(m/512))`` -> f32
-    ``codes * (scale * INV127)`` (the card takes ``(L, k, m)`` stacks)."""
+    ``codes * (scale * INV127)`` (the card takes stacks of rank 3 or more)."""
     if _route(codes, scales) == "cpu":
         return ref.coeff_dequant_ref(codes, scales)
-    return wire.coeff_dequant(codes, scales)
+    return _unfold(wire.coeff_dequant(_fold(codes), _fold(scales)), codes)
 
 
 def coeff_roundtrip(A: torch.Tensor, wire_dtype: str = "f32") -> torch.Tensor:
@@ -119,14 +136,15 @@ def encode_quant(M: torch.Tensor, G: torch.Tensor
     (codes, scales, E = G - M ship)."""
     if _route(M, G) == "cpu":
         return ref.encode_quant_ref(M, G)
-    return gradestc_encode.encode_quant(M, G)
+    # A's chain runs over l alone, so the fold needs no plan
+    return tuple(_unfold(x, G) for x in gradestc_encode.encode_quant(_fold(M), _fold(G)))
 
 
 def decode_wire(M: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Ghat = M (codes * (scale * INV127)): the int8 wire's reconstruction."""
     if _route(M, codes, scales) == "cpu":
         return ref.decode_ref(M, ref.coeff_dequant_ref(codes, scales))
-    return gradestc_decode.decode_wire(M, codes, scales)
+    return _unfold(gradestc_decode.decode_wire(_fold(M), _fold(codes), _fold(scales)), codes)
 
 
 def _words32(words: torch.Tensor) -> torch.Tensor:

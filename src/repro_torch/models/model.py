@@ -9,7 +9,6 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 
 from . import transformer
 from .config import ArchConfig
@@ -40,13 +39,17 @@ def loss_fn(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor]) -> torch.Te
         pad_bias = torch.where(torch.arange(V, device=head.device) < cfg.vocab,
                                0.0, -1e30).float()
 
+    # the one-hot mask as a comparison: F.one_hot reads the labels' range
+    # back to the host on the CPU, which torch.func.vmap cannot batch
+    vocab_ids = torch.arange(V, device=head.device)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, S, cs):
         logits = (hidden[:, c0:c0 + cs] @ head).float()       # (B, cs, V)
         if pad_bias is not None:
             logits = logits + pad_bias
         logz = torch.logsumexp(logits, dim=-1)
-        gold = (logits * F.one_hot(labels[:, c0:c0 + cs], V).to(logits.dtype)).sum(-1)
+        one_hot = labels[:, c0:c0 + cs, None] == vocab_ids
+        gold = (logits * one_hot.to(logits.dtype)).sum(-1)
         total = total + (logz - gold).sum()
     # a device divisor: true division, as the reference (see layers.rope_table)
     return total / torch.full((), B * S, dtype=torch.float32, device=total.device)

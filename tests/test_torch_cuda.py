@@ -32,7 +32,9 @@ forward on the card launches it once per layer while a ``torch.func.grad``
 step launches it never; decode and
 decode_wire at k = 1, 17, 33 and ragged l and m, decode_wire bit-equal to
 decode(M, coeff_dequant(codes, scales)); flash, decode and decode_wire give
-the same bits twice.
+the same bits twice; encode, decode, encode_quant and coeff_quant over a
+stack that folds several clients' L matrices (the fused engine's call)
+give each client the bits of its own call.
 
 Every test here needs a CUDA card and skips without one (the kernels have
 no CPU mode).  The file imports neither jax nor the JAX package, so it runs
@@ -268,6 +270,32 @@ def test_cuda_encode_kernels_give_the_same_bits_twice(cuda, L, l, m, k):
     torch.cuda.synchronize()
     assert _same_bits(A1, A2) and _same_bits(E1, E2)
     assert torch.equal(q1[0], q2[0]) and _same_bits(q1[1], q2[1]) and _same_bits(q1[2], q2[2])
+
+
+@pytest.mark.parametrize("L,l,m,k", [(2, 4096, 2816, 64), (2, 1025, 260, 64), (1, 517, 1000, 17)])
+def test_cuda_client_fold_gives_per_client_bits(cuda, L, l, m, k):
+    """The fused engine's call: (C, L, ...) stacks fold the clients into the
+    kernels' stack axis, one launch each, encode's split planned for one
+    client's L (a plan for C L would take another split, and other bits)."""
+    C = 3
+    pairs = [_inputs(l, k, m, L, seed=c) for c in range(C)]
+    M = torch.from_numpy(np.stack([p[0] for p in pairs])).to(cuda)
+    G = torch.from_numpy(np.stack([p[1] for p in pairs])).to(cuda)
+    n = ops.launch_counts()
+    A, E = ops.encode(M, G)
+    Ghat = ops.decode(M, A)
+    codes, scales, Eq = ops.encode_quant(M, G)
+    qc, qs, ship = ops.coeff_quant(A)
+    after = ops.launch_counts()
+    assert all(after[k_] == n[k_] + 1 for k_ in ("encode", "decode", "encode_quant",
+                                                 "coeff_quant"))
+    for c in range(C):
+        Ac, Ec = ops.encode(M[c], G[c])
+        assert _same_bits(A[c], Ac) and _same_bits(E[c], Ec)
+        assert _same_bits(Ghat[c], ops.decode(M[c], Ac))
+        cc, sc, ec = ops.encode_quant(M[c], G[c])
+        assert torch.equal(codes[c], cc) and _same_bits(scales[c], sc) and _same_bits(Eq[c], ec)
+        assert all(torch.equal(x[c], y) for x, y in zip((qc, qs, ship), ops.coeff_quant(Ac)))
 
 
 @pytest.mark.parametrize("L,l,m,k", [(2, 1024, 512, 64), (3, 384, 77, 8)] + ENCODE_SPLIT_CASES)
