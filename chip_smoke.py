@@ -95,6 +95,23 @@ script exits non-zero:
    ``LOSS_RTOL`` (fedpaq ``QUANT_LOSS_ATOL``), ms per steady round (rounds
    1-4 and the eval of round 4, between the two evals' fetches) of both
    engines and their ratio, and peak memory;
+4c. sharded: the same runs and ``PADDED_RUN`` (gradestc, 6 clients at
+   participation 0.5: 3 selected, padded to 4 lanes) through
+   ``run_fl(engine="fused", devices=2)`` in one world of two ranks that
+   the phase starts (``launch.mesh.run_world``): NCCL with a card each
+   where the machine has two or more, else gloo with both ranks on the one
+   card; against phase 4b's fused run of the same config (the padded run's
+   twin runs first, in this process).  For each run: the layout, the ledger
+   equal to the twin's on both ranks, the eval loss within ``LOSS_RTOL``
+   (fedpaq ``QUANT_LOSS_ATOL``), collectives per round (2; 1 where no codec
+   has per-client stats or state), host syncs by site per rank
+   (``host_fetch``: chunks, plus the evals on rank 0, which alone
+   evaluates; ``core/rsvd.py`` as the twin's; gloo's worker threads, which
+   copy the collectives' CUDA tensors through host memory, counted from
+   their C++ warnings, on gloo only), kernel launches per rank (encode,
+   decode, coeff_quant, encode_quant and decode_wire once per group and
+   round; the flat wire kernels once per lane; flash on rank 0), peak
+   memory per rank and rank 0's ms per steady round beside the twin's;
 5. card vs CPU: a small config through the port on both, for every method
    and wire of phase 4 (the CPU side with ``use_pallas=True``, the card's
    block-local quantizer wire), gradestc and fedpaq on the fused engine,
@@ -115,6 +132,10 @@ script exits non-zero:
 ``coeff_wire_times``, on the port under ``TREE/src`` (``.``, or a parent
 commit unpacked by ``git archive`` into ``build/parent``), so that two trees
 are timed alike in turns within one call; it prints no summary lines.
+
+``python3 chip_smoke.py --sharded`` runs phases 1, 2 and then only 4c,
+with every twin run in the phase: the one path that a machine with
+several cards adds (NCCL); it prints no summary lines.
 
 ``python3 chip_smoke.py --profile [METHOD]`` adds, after phase 4, a run of
 METHOD (gradestc unless named; any method of phase 4) whose round 1 is
@@ -141,9 +162,11 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -366,6 +389,17 @@ def gemma_arch():
 
     return dataclasses.replace(get_config("gemma3-1b"), n_layers=6, vocab=4096,
                                dtype="float32", remat=False)
+
+
+def slice_and_gemma():
+    """Phases 3-4c's two cuts with their policies: (arch, policy, gemma,
+    gemma_policy)."""
+    from repro_torch.core.policy import make_policy
+    from repro_torch.models import model
+
+    arch, gemma = slice_arch(), gemma_arch()
+    return (arch, make_policy(model.param_group_shapes(arch), min_params=4096),
+            gemma, make_policy(model.param_group_shapes(gemma), min_params=4096))
 
 
 def small_arch():
@@ -1524,20 +1558,27 @@ FUSED_RUNS = (("gradestc", "gradestc", {"wire_dtype": "f32"}),
               ("gemma3-gradestc", "gradestc", {}))
 
 
+def fused_settings(n_clients: int = 4):
+    """Phase 4b's (and 4c's) rounds, eval cadence, K and FLConfig fields at
+    TinyLlama width and at Gemma3-1B width."""
+    rounds, eval_every, scan = 5, 4, 4
+    kw = dict(n_clients=n_clients, participation=1.0, rounds=rounds, local_steps=2, batch=4,
+              seq=256, eval_every=eval_every, scan_rounds=scan)
+    return rounds, eval_every, scan, kw, {**kw, "batch": 2, "seq": 1024}
+
+
 def phase_fused(arch, policy, gemma, gemma_policy, n_clients: int = 4) -> dict:
     """Phase 4b: each FUSED_RUNS entry on the fused engine (scan_rounds 4)
     and on the loop, 5 rounds with an eval every 4, so the fused chunks are
     (0, 1) and (1, 5).  Checks syncs, launches, uplink and eval loss against
-    the twin; returns {label: {engine: numbers}}."""
+    the twin; returns {label: {engine: numbers, "result": the fused
+    FLResult}}."""
     from repro_torch.core import metrics
     from repro_torch.fl.engine import plan_chunks
     from repro_torch.kernels import ops
 
-    rounds, eval_every, scan = 5, 4, 4
+    rounds, eval_every, scan, kw, gemma_kw = fused_settings(n_clients)
     chunks = plan_chunks(rounds, eval_every, scan)
-    kw = dict(n_clients=n_clients, participation=1.0, rounds=rounds, local_steps=2, batch=4,
-              seq=256, eval_every=eval_every, scan_rounds=scan)
-    gemma_kw = {**kw, "batch": 2, "seq": 1024}
     out = {}
     for label, method, mkw in FUSED_RUNS:
         a, pol, rkw = (gemma, gemma_policy, gemma_kw) if label.startswith("gemma3") else (
@@ -1614,7 +1655,7 @@ def phase_fused(arch, policy, gemma, gemma_policy, n_clients: int = 4) -> dict:
                 row["fused"]["rsvd_syncs"] * n_clients != row["loop"]["rsvd_syncs"]):
             raise AssertionError(f"{label}: core/rsvd.py syncs fused {row['fused']['rsvd_syncs']}"
                                  f", loop {row['loop']['rsvd_syncs']}")
-        out[label] = row
+        out[label] = {**row, "result": fused}
     return out
 
 
@@ -1623,6 +1664,206 @@ def run_slice(method: str, arch, device: str, progress=None, engine: str = "loop
 
     cfg = FLConfig(method=method, arch=arch, device=device, engine=engine, **kw)
     return run_fl(cfg, progress)
+
+
+#: phase 4c's one run without a twin in 4b: gradestc with 3 of 6 clients a
+#: round, so the selection (3) pads to 4 lanes over the 2 ranks
+PADDED_RUN = ("gradestc-padded", "gradestc", {"wire_dtype": "f32"},
+              {"n_clients": 6, "participation": 0.5})
+#: the kernels that launch once per lane (the flat codecs loop over clients)
+LANE_KERNELS = ("sign_pack", "sign_unpack", "quant_pack", "unpack_dequant")
+
+
+class WorkerSyncs:
+    """Counts, inside the ``with`` block, the host syncs that torch's sync
+    debug mode reports from threads that run no Python -- gloo's workers,
+    which wait for the card to copy a collective's CUDA tensors through
+    host memory: C++ writes those warnings to file descriptor 2, which this
+    sends to a file while the block runs and then reads; every other line
+    is written on to stderr."""
+
+    def __enter__(self):
+        sys.stderr.flush()
+        self._file = tempfile.TemporaryFile()
+        self._saved = os.dup(2)
+        os.dup2(self._file.fileno(), 2)
+        return self
+
+    def __exit__(self, *exc):
+        sys.stderr.flush()
+        os.dup2(self._saved, 2)
+        os.close(self._saved)
+        self._file.seek(0)
+        lines = self._file.read().decode(errors="replace").splitlines()
+        self._file.close()
+        self.count = sum("synchronizing CUDA operation" in line for line in lines)
+        rest = [line for line in lines if "synchronizing CUDA operation" not in line]
+        if rest:
+            print("\n".join(rest), file=sys.stderr, flush=True)
+        return False
+
+
+def sharded_rank(rank: int, runs, chunks) -> dict:
+    """Phase 4c inside one rank of the world: each run of ``runs`` (label,
+    method, method_kw, arch, FLConfig fields) through ``run_fl(engine=
+    "fused", devices=2)``, its figures counted in this rank."""
+    from repro_torch.core import metrics
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the backend's first collective sets up its communicator: not a run's
+    torch.distributed.all_reduce(torch.ones(1, device="cuda"))
+    torch.cuda.synchronize()
+    out = {}
+    for label, method, mkw, a, rkw in runs:
+        marks = []
+
+        def at_eval(rnd, _):
+            marks.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        metrics.reset_host_sync_count()
+        metrics.reset_collective_count()
+        with WorkerSyncs() as worker, SyncCounter() as syncs:
+            res = run_slice(method, a, "cuda", progress=at_eval, engine="fused", devices=2,
+                            method_kw=mkw, **rkw)
+            torch.cuda.synchronize()
+        sites = dict(syncs.sites)
+        if worker.count:
+            sites["gloo worker threads (C++)"] = worker.count
+        out[label] = {
+            "result": res, "launches": ops.launch_counts(), "sites": sites,
+            "fetches": metrics.host_sync_count(), "collectives": metrics.collective_count(),
+            "peak_bytes": torch.cuda.max_memory_allocated(), "card": torch.cuda.current_device(),
+            "ms_round": (1e3 * (marks[1] - marks[0]) / (rkw["rounds"] - 1)
+                         if len(marks) == 2 else None),
+        }
+    return out
+
+
+def fused_twin(label: str, method: str, mkw, arch, kw) -> dict:
+    """A single-device fused run as phase 4c's twin, in the shape of phase
+    4b's rows: {"result", "fused": {"ms_round", "rsvd_syncs"}}."""
+    marks = []
+    with SyncCounter() as syncs:
+        res = run_slice(method, arch, "cuda", progress=lambda rnd, _: marks.append(
+            time.perf_counter()), engine="fused", method_kw=mkw, **kw)
+        torch.cuda.synchronize()
+    log("sharded", f"{label}: single-device fused twin, eval loss {res.eval_loss}, per-round "
+                   f"uplink {res.ledger.per_round_uplink}")
+    return {"result": res, "fused": {
+        "ms_round": 1e3 * (marks[1] - marks[0]) / (kw["rounds"] - 1),
+        "rsvd_syncs": sum(n for site, n in syncs.sites.items()
+                          if site.startswith("repro_torch/core/rsvd.py"))}}
+
+
+def phase_sharded(arch, policy, gemma, gemma_policy, fused, n_clients: int = 4) -> None:
+    """Phase 4c: each FUSED_RUNS entry and PADDED_RUN on the sharded fused
+    engine (``devices=2``) with phase 4b's settings, in one world of two
+    ranks that this phase starts: NCCL, a card each, where the machine has
+    two cards; else gloo, both ranks on the one card.  Against ``fused``,
+    phase 4b's rows (a run missing there gets its twin here first): the
+    ledger equal, the eval loss within tolerance, collectives per round,
+    host fetches and syncs by site per rank, kernel launches per rank, peak
+    memory per rank and ms per steady round (rank 0, which evaluates)."""
+    from repro_torch.fl.engine import plan_chunks
+    from repro_torch.launch.mesh import run_world
+
+    t0 = time.perf_counter()
+    rounds, eval_every, scan, kw, gemma_kw = fused_settings(n_clients)
+    chunks = len(plan_chunks(rounds, eval_every, scan))
+    cards = torch.cuda.device_count()
+    backend, used = ("nccl", 2) if cards >= 2 else ("gloo", 1)
+    runs, twins = [], {}
+    for label, method, mkw, more in [(*run, {}) for run in FUSED_RUNS] + [PADDED_RUN]:
+        a, rkw = (gemma, gemma_kw) if label.startswith("gemma3") else (arch, {**kw, **more})
+        runs.append((label, method, mkw, a, rkw))
+        twins[label] = fused.get(label) or fused_twin(label, method, mkw, a, rkw)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()        # the ranks share the card with this process
+    log("sharded", f"layout: 2 ranks on {used} of {cards} card(s), backend {backend}")
+    t_world = time.perf_counter()
+    world = run_world(sharded_rank, 2, backend, args=(runs, chunks))
+    t_world = time.perf_counter() - t_world
+    for label, method, mkw, a, rkw in runs:
+        twin = twins[label]["result"]
+        pol = gemma_policy if a is gemma else policy
+        groups = (len(pol.plans) if method in FLAT_METHODS
+                  else sum(p.compress for p in pol.plans.values()))
+        n_sel = max(1, round(rkw["participation"] * rkw["n_clients"]))
+        c_loc = -(-n_sel // 2)
+        one_collective = method in ("fedavg", "signsgd", "fedpaq", "fedqclip")
+        res0 = world[0][label]["result"]
+        dif = max(abs(x - y) for x, y in zip(res0.eval_loss, twin.eval_loss))
+        rel = max(abs(x - y) / abs(y) for x, y in zip(res0.eval_loss, twin.eval_loss))
+        ms_twin = twins[label].get("fused", {}).get("ms_round")
+        log("sharded", f"{label}: {backend}, 2 ranks on card(s) "
+                       f"{[world[r][label]['card'] for r in (0, 1)]}, lanes "
+                       f"{[world[r][label]['result'].extra['lanes'] for r in (0, 1)]} of c_pad "
+                       f"{res0.extra['c_pad']} (n_sel {n_sel}); per-round uplink "
+                       f"{res0.ledger.per_round_uplink} (equal to the twin's: "
+                       f"{res0.ledger.per_round_uplink_bits == twin.ledger.per_round_uplink_bits}); "
+                       f"eval loss {res0.eval_loss} twin {twin.eval_loss} rel {rel:.3e} abs "
+                       f"{dif:.3e}; ms per steady round rank 0 "
+                       f"{world[0][label]['ms_round']:.1f} twin "
+                       + (f"{ms_twin:.1f}" if ms_twin else "not measured"))
+        for rank in (0, 1):
+            row = world[rank][label]
+            res = row["result"]
+            want = {name: 0 for name in row["launches"]}
+            for name in RUN_KERNELS.get(label.replace("-padded", ""), ()):
+                want[name] = groups * rounds * (c_loc if name in LANE_KERNELS else 1)
+            evals = len(res.eval_rounds)
+            want["flash_attention"] = a.n_layers * 4 * evals
+            fetches = chunks + evals
+            per_round = row["collectives"] / rounds
+            fetch_sites = sum(n for site, n in row["sites"].items()
+                              if site.startswith("repro_torch/core/metrics.py"))
+            rsvd = sum(n for site, n in row["sites"].items()
+                       if site.startswith("repro_torch/core/rsvd.py"))
+            others = {site: n for site, n in row["sites"].items()
+                      if not site.startswith(("repro_torch/core/metrics.py",
+                                              "repro_torch/core/rsvd.py",
+                                              "gloo worker threads"))}
+            log("sharded", f"{label} rank {rank}: collectives per round {per_round:g}; "
+                           f"host_fetch {row['fetches']} (expected {fetches}, at metrics.py "
+                           f"{fetch_sites}); syncs by site {dict(sorted(row['sites'].items()))}; "
+                           f"launches {({n: c for n, c in row['launches'].items() if c})}; "
+                           f"peak max_memory_allocated {row['peak_bytes']} B; wall "
+                           f"{res.wall_s:.1f} s")
+            if (res.ledger.per_round_uplink_bits != twin.ledger.per_round_uplink_bits
+                    or res.ledger.downlink_bits != twin.ledger.downlink_bits
+                    or res.extra.get("sum_d") != twin.extra.get("sum_d")):
+                raise AssertionError(f"{label} rank {rank}: ledger "
+                                     f"{res.ledger.per_round_uplink_bits}, twin "
+                                     f"{twin.ledger.per_round_uplink_bits}")
+            if per_round != (1 if one_collective else 2) or res.extra["collectives"] != row[
+                    "collectives"]:
+                raise AssertionError(f"{label} rank {rank}: {row['collectives']} collectives")
+            if not (row["fetches"] == fetch_sites == fetches and evals == (2 if rank == 0 else 0)):
+                raise AssertionError(f"{label} rank {rank}: host_fetch {row['fetches']} "
+                                     f"({fetch_sites} at metrics.py), expected {fetches}")
+            if others or rsvd != twins[label]["fused"]["rsvd_syncs"]:
+                raise AssertionError(f"{label} rank {rank}: syncs {row['sites']}, rsvd twin "
+                                     f"{twins[label]['fused']['rsvd_syncs']}")
+            if (backend == "gloo") != ("gloo worker threads (C++)" in row["sites"]):
+                raise AssertionError(f"{label} rank {rank}: gloo syncs {row['sites']}")
+            if row["launches"] != want:
+                raise AssertionError(f"{label} rank {rank}: launches {row['launches']}, "
+                                     f"expected {want}")
+            if rank == 1 and res.eval_loss:
+                raise AssertionError(f"{label}: rank 1 evaluated")
+        if not all(math.isfinite(x) for x in res0.eval_loss):
+            raise AssertionError(f"{label}: non-finite eval loss {res0.eval_loss}")
+        if method in ATOL_METHODS and dif > QUANT_LOSS_ATOL:
+            raise AssertionError(f"{label}: sharded eval loss differs by {dif:.3e}")
+        if method not in ATOL_METHODS and rel > LOSS_RTOL:
+            raise AssertionError(f"{label}: sharded eval loss differs by {rel:.3e}")
+    log("sharded", f"phase 4c wall {time.perf_counter() - t0:.1f} s (the world, spawn "
+                   f"included: {t_world:.1f} s)")
 
 
 def phase_profile(method: str, arch, kw, engine: str = "loop") -> None:
@@ -1750,6 +1991,7 @@ def main() -> int:
     args = sys.argv[1:]
     turn_tree = args[args.index("--turn") + 1] if "--turn" in args else None
     profile_run = "--profile" in args
+    sharded_only = "--sharded" in args
     profile_method = (args[args.index("--profile") + 1]
                       if profile_run and args.index("--profile") + 1 < len(args) else "gradestc")
     # ---- 1. device
@@ -1775,6 +2017,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     log("build", f"built in {time.perf_counter() - t0:.2f} s into {_build.last_build['dir']}")
+    if sharded_only:
+        phase_sharded(*slice_and_gemma(), {})
+        return 0
     for line in _build.last_build["log"].splitlines():
         if ("registers" in line or "spill" in line or "entry function" in line
                 or line.startswith("==")):
@@ -1782,12 +2027,10 @@ def main() -> int:
 
     # ---- 3. kernels, at the shapes the slice gives them
     from repro_torch.core import metrics
-    from repro_torch.core.policy import make_policy
     from repro_torch.kernels import ops
     from repro_torch.models import model
 
-    arch = slice_arch()
-    policy = make_policy(model.param_group_shapes(arch), min_params=4096)
+    arch, policy, gemma, gemma_policy = slice_and_gemma()
     group_counts = {}
     for plan in policy.plans.values():
         if plan.compress:
@@ -1801,8 +2044,6 @@ def main() -> int:
     bound_by.update(wbound_by)
     log_gemm_totals("tinyllama", tot, ("encode", "encode_quant", "decode", "decode_wire"))
     phase_client_fold(sorted(group_counts))
-    gemma = gemma_arch()
-    gemma_policy = make_policy(model.param_group_shapes(gemma), min_params=4096)
     gemma_counts = collections.Counter((p.stack, p.l, p.m, p.k)
                                        for p in gemma_policy.plans.values() if p.compress)
     phase_encode_gemma(sorted(gemma_counts), gemma_counts)
@@ -1923,7 +2164,9 @@ def main() -> int:
         f"{label} {b / raw_bits:.4f}" for label, b in bits.items()
         if not label.startswith("gemma3")) + f"; gemma3-gradestc / gemma3-fedavg {gemma_ratio:.4f}")
     # ---- 4b. the fused engine beside its loop twin
-    phase_fused(arch, policy, gemma, gemma_policy, n_clients)
+    fused = phase_fused(arch, policy, gemma, gemma_policy, n_clients)
+    # ---- 4c. the sharded fused engine, two ranks, beside 4b's fused runs
+    phase_sharded(arch, policy, gemma, gemma_policy, fused, n_clients)
     if profile_run:
         profile_kernels(group_counts, flat_counts)
         for engine in ("loop", "fused"):

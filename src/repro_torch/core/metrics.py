@@ -17,9 +17,11 @@ import numpy as np
 import torch
 
 __all__ = ["CommLedger", "PendingFetch", "host_fetch", "start_fetch", "host_sync_count",
-           "reset_host_sync_count"]
+           "reset_host_sync_count", "count_collective", "collective_count",
+           "reset_collective_count"]
 
 _HOST_SYNCS = 0
+_COLLECTIVES = 0
 
 
 class PendingFetch(NamedTuple):
@@ -64,6 +66,21 @@ def host_sync_count() -> int:
 def reset_host_sync_count() -> None:
     global _HOST_SYNCS
     _HOST_SYNCS = 0
+
+
+def count_collective() -> None:
+    """Count one cross-rank collective (``launch/sharding.FLRoundSpecs``)."""
+    global _COLLECTIVES
+    _COLLECTIVES += 1
+
+
+def collective_count() -> int:
+    return _COLLECTIVES
+
+
+def reset_collective_count() -> None:
+    global _COLLECTIVES
+    _COLLECTIVES = 0
 
 
 @dataclass

@@ -25,7 +25,10 @@ means the kernels on the card and the plain versions on the CPU, where
 FedPAQ/FedQClip then run the paper's global quantizer and
 ``use_pallas=True`` gives the card's block-local wire.
 ``engine="fused"`` runs the K-round client-batched engine
-(:mod:`repro_torch.fl.engine`) on one device; the default stays the loop.
+(:mod:`repro_torch.fl.engine`), on one device or, with ``devices`` > 1,
+sharded over a ``torch.distributed`` world of that many ranks: the
+caller's, where one is initialized, else ranks that ``run_fl`` starts
+(gloo on the CPU, NCCL on the cards).  The default stays the loop.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import prng
 from ..core.codecs import SERVER_CLIENT_ID, round_base_key
@@ -109,8 +113,11 @@ class FLConfig:
     use_pallas: Optional[bool] = None
     #: where the run lives: "cuda" (default) or "cpu".
     device: str = "cuda"
-    #: data-parallel device count of the fused engine; None/1 = one device
-    #: (more is the sharded engine, ROADMAP A11, not ported).
+    #: data-parallel device count of the fused engine; None/1 = one device.
+    #: More runs the sharded engine (``engine="fused"`` only): the selected
+    #: clients split over that many ranks, in the caller's process group if
+    #: one is initialized (it must have that many ranks), else in ranks that
+    #: ``run_fl`` starts (gloo on the CPU; NCCL on the cards, one a card).
     devices: Optional[int] = None
 
 
@@ -221,9 +228,12 @@ def _setup_run(cfg: FLConfig) -> _RunSetup:
 def _check_config(cfg: FLConfig) -> None:
     if cfg.engine not in ("fused", "loop"):
         raise ValueError(f"unknown engine {cfg.engine!r} (want 'fused' or 'loop')")
-    if int(cfg.devices or 1) > 1:
-        raise NotImplementedError(
-            f"devices={cfg.devices}: the sharded engine is not ported yet (ROADMAP A11)")
+    ndev = int(cfg.devices or 1)
+    if ndev < 1:
+        raise ValueError(f"devices={cfg.devices}: want a positive rank count")
+    if ndev > 1 and cfg.engine != "fused":
+        raise ValueError(f"devices={ndev} runs the sharded engine, which is engine='fused'; "
+                         f"engine={cfg.engine!r} runs on one device")
     dev = torch.device(cfg.device)
     if dev.type == "cuda" and cfg.use_pallas is False:
         raise ValueError("use_pallas=False on a CUDA device: the port has no "
@@ -235,11 +245,13 @@ def _check_config(cfg: FLConfig) -> None:
 
 def run_fl(cfg: FLConfig, progress: Optional[Callable[[int, dict], None]] = None) -> FLResult:
     _check_config(cfg)
-    if cfg.engine == "fused":
-        from .engine import run_fl_fused
+    if cfg.engine == "loop":
+        return _run_fl_loop(cfg, progress)
+    from .engine import run_fl_fused, run_fl_spawned
 
-        return run_fl_fused(cfg, progress)
-    return _run_fl_loop(cfg, progress)
+    if int(cfg.devices or 1) > 1 and not (dist.is_available() and dist.is_initialized()):
+        return run_fl_spawned(cfg, progress)
+    return run_fl_fused(cfg, progress)
 
 
 def _run_fl_loop(cfg: FLConfig, progress=None) -> FLResult:

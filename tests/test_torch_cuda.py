@@ -34,7 +34,10 @@ decode_wire at k = 1, 17, 33 and ragged l and m, decode_wire bit-equal to
 decode(M, coeff_dequant(codes, scales)); flash, decode and decode_wire give
 the same bits twice; encode, decode, encode_quant and coeff_quant over a
 stack that folds several clients' L matrices (the fused engine's call)
-give each client the bits of its own call.
+give each client the bits of its own call; and, where the host has two
+cards, ``run_fl(devices=2)`` starts two NCCL ranks, a card each, whose
+ledger equals the single-device fused run's and whose eval losses are
+within 1e-5 (fedpaq 5e-4).
 
 Every test here needs a CUDA card and skips without one (the kernels have
 no CPU mode).  The file imports neither jax nor the JAX package, so it runs
@@ -820,3 +823,31 @@ def test_cuda_eval_forward_runs_flash_and_training_does_not(cuda):
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == 0
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+
+
+@pytest.mark.parametrize("method,kw,atol", [
+    ("gradestc", dict(n_clients=5, participation=0.6), 1e-5),    # n_sel 3 padded to 4
+    ("svdfed", dict(method_kw={"wire_dtype": "int8"}), 1e-5),
+    ("fedpaq", {}, 5e-4),
+])
+def test_cuda_sharded_engine_on_two_cards_over_nccl(cuda, method, kw, atol):
+    """The sharded fused engine started by ``run_fl`` itself: NCCL, rank r
+    on card r, against the single-device fused run on card 0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from repro_torch.fl import simulation as tsim
+    from repro_torch.models.config import ArchConfig
+
+    arch = ArchConfig(name="sharded-card", family="dense", n_layers=2, d_model=64, n_heads=4,
+                      n_kv_heads=2, d_ff=256, vocab=64, dtype="float32")
+    cfg = {**dict(method=method, rounds=4, n_clients=4, local_steps=1, batch=2, seq=16,
+                  eval_every=2, seed=1, arch=arch, engine="fused", scan_rounds=4), **kw}
+    single = tsim.run_fl(tsim.FLConfig(**cfg))
+    shard = tsim.run_fl(tsim.FLConfig(devices=2, **cfg))
+    assert shard.extra["devices"] == 2 and shard.extra["backend"] == "nccl"
+    assert shard.extra["collectives"] == cfg["rounds"] * (1 if method == "fedpaq" else 2)
+    assert shard.ledger.per_round_uplink_bits == single.ledger.per_round_uplink_bits
+    assert shard.ledger.downlink_bits == single.ledger.downlink_bits
+    assert shard.extra.get("sum_d") == single.extra.get("sum_d")
+    assert shard.eval_rounds == single.eval_rounds == [0, 2, 3]
+    np.testing.assert_allclose(shard.eval_loss, single.eval_loss, rtol=0, atol=atol)

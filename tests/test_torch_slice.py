@@ -70,8 +70,8 @@ def test_gradestc_compresses_and_syncs_once_per_round(port):
 
 def test_unported_options_raise():
     cfg = dict(arch=TArch(**ARCH), device="cpu", **RUN)
-    with pytest.raises(NotImplementedError):     # the sharded engine (ROADMAP A11)
-        tsim.run_fl(tsim.FLConfig(engine="fused", devices=2, **cfg))
+    with pytest.raises(ValueError, match="engine='fused'"):   # the loop runs on one device
+        tsim.run_fl(tsim.FLConfig(devices=2, **cfg))
     with pytest.raises(ValueError):
         tsim.run_fl(tsim.FLConfig(engine="scan", **cfg))
     with pytest.raises(ValueError):
