@@ -126,7 +126,26 @@ script exits non-zero:
    ``compress_update`` and ``decompress``): after every round the server's
    basis equals the client's bit for bit, Ghat equals ``reconstruct(M, A)``
    bit for bit, the payload's bytes are Formula 14's, and encode and decode
-   each launch once.
+   each launch once;
+7. drivers: ``launch.serve.generate`` at TinyLlama-1.1B's and Gemma3-1B's
+   full published width and depth, in bf16, batch 4, prompt 16, 16 decode
+   steps, a 64-token cache: host syncs by source line (one, the tokens'
+   fetch) and kernel launches (none) in prefill and decode, then a warm run
+   timed (ms per step, tokens/s, peak memory); the decode logits over the
+   prompt and the generated tokens against one forward (flash, n_layers
+   launches) within ``DECODE_TOL`` of max |logits|; against the same
+   forward in f32 (TF32 off), the bf16 decode no farther than
+   ``BF16_F32_FACTOR`` times the bf16 forward, and the decode in f32 within
+   ``F32_DECODE_TOL``, which tells a wrong decode from bf16's rounding;
+   TinyLlama's params after one Adam step and the Adam state
+   saved by ``checkpoint.save`` and restored onto the card bit for bit,
+   with the bytes and seconds; Gemma3-1B reduced (window 16) decoded for
+   40 steps on the card and the CPU within 1e-5 of max |logits|;
+   ``launch.train.main`` in sim mode (gradestc, 3 rounds, 4 clients): the
+   FLConfig it builds equal to one built here from the reference's fields,
+   its ledger and losses equal to a direct ``run_fl`` of that one, and its
+   encode and decode launches; and ``CompileWatcher``: phase 2's build,
+   and no build or load after it.
 
 ``python3 chip_smoke.py --turn TREE`` runs phase 1 and then only
 ``coeff_wire_times``, on the port under ``TREE/src`` (``.``, or a parent
@@ -136,6 +155,9 @@ are timed alike in turns within one call; it prints no summary lines.
 ``python3 chip_smoke.py --sharded`` runs phases 1, 2 and then only 4c,
 with every twin run in the phase: the one path that a machine with
 several cards adds (NCCL); it prints no summary lines.
+
+``python3 chip_smoke.py --drivers`` runs phases 1, 2 and then only 7; it
+prints no summary lines.
 
 ``python3 chip_smoke.py --profile [METHOD]`` adds, after phase 4, a run of
 METHOD (gradestc unless named; any method of phase 4) whose round 1 is
@@ -163,6 +185,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1987,11 +2010,253 @@ def profile_kernels(group_counts, flat_counts) -> None:
                                                       for kernel, t in us.items()))
 
 
+#: phase 7's serve runs: full published width and depth, each config's own
+#: dtype (bf16); batch, prompt, decode steps and cache length
+SERVE_ARCHS = ("tinyllama-1.1b", "gemma3-1b")
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX_LEN = 4, 16, 16, 64
+#: decode against one forward over the same tokens, as the reference's
+#: ``test_decode_matches_forward``: max |diff| <= DECODE_TOL * max |logits|
+DECODE_TOL = 2e-2
+#: against the forward in f32 (TF32 off): the bf16 decode no farther than
+#: this factor times the bf16 forward (measured 0.93-1.02)
+BF16_F32_FACTOR = 1.2
+#: the decode in f32 against the f32 forward, max |diff| / max |logits|
+#: (measured 1.6e-6-2.2e-6)
+F32_DECODE_TOL = 1e-5
+#: Gemma3's reduced config past its 16-token window: card against CPU
+REDUCED_STEPS, REDUCED_RTOL = 40, 1e-5
+TRAIN_ARGV = ["--mode", "sim", "--method", "gradestc", "--rounds", "3", "--clients", "4",
+              "--local-steps", "1"]
+
+
+def decode_logits(cfg, params, tokens, max_len: int):
+    """Logits (B, S, V) of stepping ``decode_step`` over ``tokens`` (B, S)."""
+    from repro_torch.models import model
+
+    cache = model.init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+    outs = []
+    for t in range(tokens.shape[1]):
+        lg, cache = model.decode_step(cfg, params, cache, tokens[:, t:t + 1])
+        outs.append(lg[:, 0])
+    return torch.stack(outs, dim=1)
+
+
+def serve_full(name: str):
+    """Phase 7(a) for one config: ``launch.serve.generate`` at full width
+    (its loops' syncs and launches counted), timed warm, and its tokens'
+    decode logits against one forward.  Returns the params."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model
+
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    key = prng.PRNGKey(0, "cuda")
+    params = model.init_params(cfg, key)
+    prompts = prng.randint(key, (SERVE_BATCH, SERVE_PROMPT), 0, cfg.vocab)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, P, n = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS
+    ops.reset_launch_counts()
+    with SyncCounter() as syncs:
+        gen, prefill_s, decode_s = generate(cfg, params, prompts, n, SERVE_MAX_LEN)
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    fetch = sum(c for s, c in syncs.sites.items() if s.startswith("repro_torch/core/metrics.py"))
+    log("drivers", f"{name}: {model.count_params(params)} params ({cfg.dtype}), init "
+                   f"{init_s:.2f} s; generate's host syncs {dict(syncs.sites)}; kernel "
+                   f"launches in prefill and decode {launched}")
+    if launched or fetch != 1 or sum(syncs.sites.values()) != 1:
+        raise AssertionError(f"{name}: generate launched {launched} and synced "
+                             f"{dict(syncs.sites)}: want no launch and one token fetch")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    gen2, prefill_s, decode_s = generate(cfg, params, prompts, n, SERVE_MAX_LEN)
+    peak = torch.cuda.max_memory_allocated()
+    if not (gen2 == gen).all():
+        raise AssertionError(f"{name}: greedy tokens differ between two runs")
+    log("drivers", f"{name} serve: batch {B} prompt {P} steps {n} max_len {SERVE_MAX_LEN}: "
+                   f"prefill {1e3 * prefill_s / P:.3f} ms/step ({B * P / prefill_s:.1f} tok/s), "
+                   f"decode {1e3 * decode_s / n:.3f} ms/step ({B * n / decode_s:.1f} tok/s), "
+                   f"peak memory {peak} B (held before: {held} B, the weights); first ids "
+                   f"{gen[0].tolist()}")
+    tokens = torch.cat([prompts.long(), torch.from_numpy(gen).cuda()], dim=1)
+    ops.reset_launch_counts()
+    dec = decode_logits(cfg, params, tokens, SERVE_MAX_LEN)
+    dec_flash = ops.launch_counts()["flash_attention"]
+    with torch.no_grad():
+        fwd = model.forward(cfg, params, {"tokens": tokens})
+    fwd_flash = ops.launch_counts()["flash_attention"] - dec_flash
+    err = (dec - fwd).abs().max().item()
+    scale = fwd.abs().max().item()
+    # the same params widened: the forward in f32 (flash too, TF32 off), the
+    # bf16 decode and forward each against it, and the decode in f32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = {k: v.float() for k, v in params.items()}
+    with torch.no_grad():
+        f32 = model.forward(cfg32, p32, {"tokens": tokens})
+    dec32 = decode_logits(cfg32, p32, tokens, SERVE_MAX_LEN)
+    del p32
+    dec_off = (dec - f32).abs().max().item() / scale
+    fwd_off = (fwd - f32).abs().max().item() / scale
+    err32 = (dec32 - f32).abs().max().item() / f32.abs().max().item()
+    del f32, dec32
+    log("drivers", f"{name}: decode vs forward over {tokens.shape[1]} tokens: max |diff| "
+                   f"{err:.4e}, max |logits| {scale:.4e}, ratio {err / scale:.4e} (tol "
+                   f"{DECODE_TOL}); against the f32 forward: decode {dec_off:.4e}, bf16 "
+                   f"forward {fwd_off:.4e} (factor {dec_off / fwd_off:.3f}, tol "
+                   f"{BF16_F32_FACTOR}); f32 decode vs f32 forward {err32:.4e} (tol "
+                   f"{F32_DECODE_TOL}); flash launches: decode {dec_flash}, forward "
+                   f"{fwd_flash} (n_layers {cfg.n_layers})")
+    ok = (math.isfinite(err) and err <= DECODE_TOL * scale
+          and dec_off <= BF16_F32_FACTOR * fwd_off and err32 <= F32_DECODE_TOL)
+    if not ok or dec_flash != 0 or fwd_flash != cfg.n_layers:
+        raise AssertionError(f"{name}: decode vs forward {err / scale:.3e}, vs f32 "
+                             f"{dec_off:.3e} (bf16 forward {fwd_off:.3e}), f32 decode "
+                             f"{err32:.3e}, flash {dec_flash}/{fwd_flash}")
+    return params
+
+
+def reduced_past_window() -> None:
+    """Phase 7(a): Gemma3-1B's reduced config (f32, window 16) decoded for
+    REDUCED_STEPS tokens on the card and on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.models import model
+
+    cfg = get_config("gemma3-1b").reduced()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        key = prng.PRNGKey(0, dev)
+        params = model.init_params(cfg, key)
+        tokens = prng.randint(key, (2, REDUCED_STEPS), 0, cfg.vocab)
+        out[dev] = decode_logits(cfg, params, tokens, 64).cpu()
+    err = (out["cuda"] - out["cpu"]).abs().max().item()
+    scale = out["cpu"].abs().max().item()
+    log("drivers", f"{cfg.name} (window {cfg.sliding_window}): {REDUCED_STEPS} decode steps, "
+                   f"card vs CPU max |diff| {err:.3e}, max |logits| {scale:.3e}, ratio "
+                   f"{err / scale:.3e} (tol {REDUCED_RTOL})")
+    if not err <= REDUCED_RTOL * scale:
+        raise AssertionError(f"{cfg.name}: card vs CPU decode {err / scale:.3e}")
+
+
+def train_driver() -> None:
+    """Phase 7(b): ``launch.train.main`` in sim mode on the card.  The
+    FLConfig it builds is held against one built here from the reference's
+    fields (the fused engine, eval every max(1, rounds // 10), the CLI's
+    values and defaults), and its ledger and losses against a direct
+    ``run_fl`` of that one."""
+    from repro_torch.fl import simulation
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    seen = []
+    direct_run_fl = simulation.run_fl
+
+    def recording(cfg, progress=None):
+        res = direct_run_fl(cfg, progress)
+        seen.append((cfg, res))
+        return res
+
+    ops.reset_launch_counts()
+    simulation.run_fl = recording
+    try:
+        rc = train.main(TRAIN_ARGV)
+    finally:
+        simulation.run_fl = direct_run_fl
+    counts = ops.launch_counts()
+    (cfg, res), = seen
+    want = simulation.FLConfig(method="gradestc", rounds=3, n_clients=4, local_steps=1,
+                               alpha=None, lr=0.05, seed=0, eval_every=1, engine="fused",
+                               device="cuda")
+    if cfg != want:
+        raise AssertionError(f"train driver built {cfg}, want {want}")
+    ref = direct_run_fl(want)
+    a, b = res.ledger, ref.ledger
+    same = (a.per_round_uplink_bits == b.per_round_uplink_bits and a.uplink_bits == b.uplink_bits
+            and a.downlink_bits == b.downlink_bits and a.per_group_bits == b.per_group_bits)
+    rel = max(abs(x - y) / abs(y) for x, y in zip(res.eval_loss, ref.eval_loss))
+    log("drivers", f"train --mode sim ({cfg.method}, engine {cfg.engine}, {cfg.rounds} rounds, "
+                   f"{cfg.n_clients} clients): rc {rc}, per-round uplink bits "
+                   f"{a.per_round_uplink_bits} (direct run_fl {b.per_round_uplink_bits}), eval "
+                   f"loss {res.eval_loss} (direct {ref.eval_loss}, max rel {rel:.3e}); launches "
+                   f"encode {counts['encode']} decode {counts['decode']} flash "
+                   f"{counts['flash_attention']}")
+    if rc != 0 or not same or rel > LOSS_RTOL or not counts["encode"] or not counts["decode"]:
+        raise AssertionError(f"train driver: rc {rc}, ledger equal {same}, loss rel {rel:.3e}, "
+                             f"launches {dict(counts)}")
+
+
+def checkpoint_roundtrip(params) -> None:
+    """Phase 7(c): TinyLlama's params after one Adam step and the Adam state
+    over them, saved and restored onto the card bit for bit."""
+    from repro_torch import checkpoint
+    from repro_torch.optim import adam
+
+    init, update = adam(1e-3)
+    params, state = update({k: p * 0.5 for k, p in params.items()}, init(params), params)
+    tree = {"params": params, "opt": state}
+    # ~13 GB: under $TMPDIR or the checkout's build/, whichever has more room
+    (ROOT / "build").mkdir(exist_ok=True)
+    room = max((Path(tempfile.gettempdir()), ROOT / "build"),
+               key=lambda d: shutil.disk_usage(d).free)
+    with tempfile.TemporaryDirectory(dir=room) as tmp:
+        log("drivers", f"checkpoint dir {tmp}: {shutil.disk_usage(tmp).free} B free")
+        t0 = time.perf_counter()
+        path = checkpoint.save(tmp, 1, tree)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        template = {"params": {k: torch.empty_like(p) for k, p in params.items()},
+                    "opt": type(state)(torch.zeros_like(state.step),
+                                       tuple({k: torch.empty_like(x) for k, x in s.items()}
+                                             for s in state.slots))}
+        t0 = time.perf_counter()
+        back = checkpoint.restore(tmp, checkpoint.latest_step(tmp), template)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    pairs = [(params, back["params"]), (state.slots[0], back["opt"].slots[0]),
+             (state.slots[1], back["opt"].slots[1])]
+    same = all(y.is_cuda and y.dtype == x.dtype and torch.equal(x, y)
+               for a, b in pairs for x, y in ((a[k], b[k]) for k in a))
+    same = same and back["opt"].step.is_cuda and int(back["opt"].step) == 1
+    log("drivers", f"checkpoint: {len(params)} params + Adam state, {nbytes} B on disk, save "
+                   f"{save_s:.2f} s, restore onto the card {load_s:.2f} s, bit for bit {same}")
+    if not same:
+        raise AssertionError("checkpoint: restored tree differs from the saved one")
+
+
+def phase_drivers(watcher) -> None:
+    """Phase 7: serve at full width (TinyLlama's params then through a
+    checkpoint round trip), the reduced Gemma3 past its window, the train
+    driver, and the build watcher."""
+    t0 = time.perf_counter()
+    mark = watcher.snapshot()
+    for name in SERVE_ARCHS:
+        params = serve_full(name)
+        if name == "tinyllama-1.1b":
+            checkpoint_roundtrip(params)
+        del params
+        torch.cuda.empty_cache()
+    reduced_past_window()
+    train_driver()
+    builds, build_s = watcher.since(0)
+    later = watcher.since(mark)
+    log("drivers", f"CompileWatcher: {builds} library build(s) in {build_s:.2f} s in this "
+                   f"process (phase 2), {later[0]} build(s) and {len(watcher.events) - mark} "
+                   f"load(s) since")
+    if builds > 1 or later[0] or len(watcher.events) != 1:
+        raise AssertionError(f"CompileWatcher: events {watcher.events}, expected phase 2's "
+                             f"load alone")
+    log("drivers", f"phase 7 wall {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     args = sys.argv[1:]
     turn_tree = args[args.index("--turn") + 1] if "--turn" in args else None
     profile_run = "--profile" in args
     sharded_only = "--sharded" in args
+    drivers_only = "--drivers" in args
     profile_method = (args[args.index("--profile") + 1]
                       if profile_run and args.index("--profile") + 1 < len(args) else "gradestc")
     # ---- 1. device
@@ -2012,13 +2277,18 @@ def main() -> int:
                   f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
+    from repro_torch.launch.compile_cache import CompileWatcher
 
     # ---- 2. build
+    watcher = CompileWatcher.install()
     t0 = time.perf_counter()
     _build.load()
     log("build", f"built in {time.perf_counter() - t0:.2f} s into {_build.last_build['dir']}")
     if sharded_only:
         phase_sharded(*slice_and_gemma(), {})
+        return 0
+    if drivers_only:
+        phase_drivers(watcher)
         return 0
     for line in _build.last_build["log"].splitlines():
         if ("registers" in line or "spill" in line or "entry function" in line
@@ -2201,7 +2471,10 @@ def main() -> int:
     # ---- 6. the Alg. 1/2 compressor API at one TinyLlama group's shape
     phase_compressor_api(policy.plans["layers/mlp_wout"])
 
-    # ---- 7. summary lines
+    # ---- 7. the drivers: serve, train, checkpoint, the build watcher
+    phase_drivers(watcher)
+
+    # ---- 8. summary lines
     csrc = "src/repro_torch/kernels/csrc/"
     rows = []
     for name, row_name, replaces, run, src in (

@@ -4,7 +4,9 @@
 ``jax.device_get``, so plain numpy) and returns the port's flat
 ``{path: tensor}`` dict, keyed by the same ``/``-joined paths the
 compression policy uses (``"layers/attn_wq"``, ``"embed"``, ...).  The
-layouts already agree, so no array is transposed.
+layouts already agree, so no array is transposed.  A bf16 array (numpy's
+``ml_dtypes.bfloat16``) comes across bit for bit, through its 16-bit
+pattern.
 """
 
 from __future__ import annotations
@@ -17,6 +19,12 @@ import torch
 __all__ = ["params_from_jax"]
 
 
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    if arr.dtype.name == "bfloat16":      # torch cannot read ml_dtypes' bf16
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def params_from_jax(tree: Any, device="cuda", prefix: str = "") -> Dict[str, torch.Tensor]:
     """Flatten a nested dict of numpy arrays into ``{path: tensor}`` on
     ``device`` (the card unless the caller asks for the CPU)."""
@@ -26,5 +34,5 @@ def params_from_jax(tree: Any, device="cuda", prefix: str = "") -> Dict[str, tor
         if isinstance(node, dict):
             out.update(params_from_jax(node, device, prefix=f"{path}/"))
         else:
-            out[path] = torch.from_numpy(np.array(node)).to(device)
+            out[path] = _tensor(np.array(node)).to(device)
     return out

@@ -16,7 +16,7 @@ from typing import Dict, List, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-__all__ = ["CommLedger", "PendingFetch", "host_fetch", "start_fetch", "host_sync_count",
+__all__ = ["CommLedger", "bytes_h", "PendingFetch", "host_fetch", "start_fetch", "host_sync_count",
            "reset_host_sync_count", "count_collective", "collective_count",
            "reset_collective_count"]
 
@@ -83,6 +83,15 @@ def reset_collective_count() -> None:
     _COLLECTIVES = 0
 
 
+def bytes_h(b: float) -> str:
+    """Human-readable bytes."""
+    for unit in ("B", "KB", "MB", "GB", "TB"):
+        if abs(b) < 1024.0 or unit == "TB":
+            return f"{b:.3f} {unit}"
+        b /= 1024.0
+    return f"{b:.3f} TB"
+
+
 @dataclass
 class CommLedger:
     uplink_bits: int = 0
@@ -125,5 +134,22 @@ class CommLedger:
         return [b / 8 for b in self.per_round_uplink_bits]
 
     @property
+    def per_group(self) -> Dict[str, float]:
+        return {g: b / 8 for g, b in self.per_group_bits.items()}
+
+    @property
     def rounds(self) -> int:
         return len(self.per_round_uplink_bits)
+
+    def summary(self) -> str:
+        """The reference's summary: totals, rounds, per-group uplink."""
+        lines = [
+            f"uplink total   : {bytes_h(self.uplink_total)}",
+            f"downlink total : {bytes_h(self.downlink_total)}",
+            f"rounds         : {self.rounds}",
+        ]
+        if self.per_group:
+            lines.append("per-group uplink:")
+            for g, b in sorted(self.per_group.items(), key=lambda kv: -kv[1]):
+                lines.append(f"  {g:40s} {bytes_h(b)}")
+        return "\n".join(lines)

@@ -11,6 +11,9 @@ selections, rSVD test matrices and initial weights:
 * constants enter as Python scalars (rounded to float32 where the
   reference holds them in float32), never as fresh device tensors, so a
   draw on the card makes no host-to-device copy and no stream sync;
+* ``randint`` and ``categorical`` (its Gumbel draws through the same
+  XLA-exact ``log``) equal jax's too, as the serve driver draws prompts
+  and samples tokens with them;
 * ``normal`` follows the reference's transform (uniform on
   ``[nextafter(-1, 0), 1)`` through XLA's polynomial ``erf_inv``, times
   sqrt(2)), with XLA's own f32 ``log`` and ``log1p`` mirrored in tensor
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 __all__ = ["PRNGKey", "fold_in", "split", "bits", "uniform", "normal",
-           "permutation", "erfinv_f32"]
+           "permutation", "randint", "gumbel", "categorical", "erfinv_f32"]
 
 _MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -223,3 +226,33 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
         order = torch.sort(bits(sub, (n,)), stable=True).indices
         x = x[order]
     return x
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32): two 32-bit
+    words from a split key, reduced modulo the span as jax does, with its
+    uint32 wrap-around emulated in int64."""
+    span = max(int(maxval) - int(minval), 1) & _MASK
+    # jax's 2**32 mod span, ((2**16 % N) * (2**16 % N)) % N, whose product
+    # wraps in uint32 (to 0 for a span above 2**16)
+    mult = ((((1 << 16) % span) ** 2) & _MASK) % span
+    k1, k2 = split(key, 2).unbind(-2)
+    hi, lo = bits(k1, shape), bits(k2, shape)
+    off = (((hi % span) * mult) & _MASK) + (lo % span)
+    off = (off & _MASK) % span
+    return (int(minval) + off).to(torch.int32)
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32, "low" mode: ``-log(-log(u))`` on
+    ``uniform(minval=tiny)``, with XLA's float32 ``log``."""
+    u = uniform(key, shape, _MIN_NORMAL_F32, 1.0)
+    return -_log_f32(-_log_f32(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis of f32
+    logits: the argmax of Gumbel noise plus the logits (ties to the lower
+    index, as ``jnp.argmax``)."""
+    g = gumbel(key, tuple(logits.shape))
+    return torch.argmax(g + logits, dim=-1)

@@ -8,8 +8,11 @@ interface: one nvcc per source, all started together, then one link:
     nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libgradestc.so *.o
 
 The library lands in ``build/repro_torch_kernels/<hash>/`` under the
-repository root, keyed by a hash of the sources and flags, so an edited
-source rebuilds and an unchanged one loads at once.  Nothing here runs at
+repository root (``launch.compile_cache.enable_compilation_cache`` moves
+that root), keyed by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads at once.  Every load records one
+event in ``events``: when it ended, its seconds and whether it ran nvcc
+(``launch.compile_cache.CompileWatcher`` reads them).  Nothing here runs at
 import time: the CPU tests import every module without a CUDA toolkit.
 """
 
@@ -24,15 +27,16 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-__all__ = ["load", "launch", "stream", "device", "BUILD_ROOT", "NVCC_FLAGS", "last_build",
-           "launches"]
+__all__ = ["load", "launch", "stream", "device", "BUILD_ROOT", "DEFAULT_BUILD_ROOT",
+           "NVCC_FLAGS", "last_build", "launches", "events", "loaded"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+DEFAULT_BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+BUILD_ROOT = DEFAULT_BUILD_ROOT
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -64,6 +68,9 @@ last_build: Dict[str, object] = {}
 #: kernel launches by name, one per wrapper call that launched (read and
 #: reset through ``ops.launch_counts``/``ops.reset_launch_counts``)
 launches: "collections.Counter[str]" = collections.Counter()
+#: one (perf_counter at its end, seconds, built) per load of the library:
+#: ``built`` when it ran nvcc, else it loaded an existing build
+events: List[Tuple[float, float, bool]] = []
 
 
 def _nvcc() -> str:
@@ -130,7 +137,8 @@ def load() -> ctypes.CDLL:
     out = _build_dir()
     so = out / "libgradestc.so"
     t0 = time.perf_counter()
-    if not so.exists():
+    built = not so.exists()
+    if built:
         out.mkdir(parents=True, exist_ok=True)
         os.replace(_compile(out), so)       # atomic: concurrent builds agree
     # a build made earlier (by another process) left its compilers' output
@@ -142,7 +150,14 @@ def load() -> ctypes.CDLL:
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     _LIB = lib
+    t1 = time.perf_counter()
+    events.append((t1, t1 - t0, built))
     return lib
+
+
+def loaded() -> bool:
+    """Whether this process has loaded the library."""
+    return _LIB is not None
 
 
 def launch(name: str, fn: str, *args) -> None:

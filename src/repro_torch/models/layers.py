@@ -10,13 +10,13 @@ computes it outside any Pallas kernel.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 __all__ = ["rms_norm", "rope_table", "apply_rope", "repeat_kv", "attention",
-           "swiglu"]
+           "decode_attention", "decode_attention_gqa", "KVCache", "swiglu"]
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -100,6 +100,75 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=1)
 
 
+def decode_mask(S: int, length: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """(B or 1, S) bool, True for the keys a decode step masks out: at or
+    above ``length`` and, for ``window`` > 0, below ``length - window``;
+    ``length`` is a 0-dim or (B,) int tensor."""
+    kpos = torch.arange(S, device=length.device)
+    lb = length.reshape(-1, 1)
+    out = kpos >= lb
+    if window > 0:
+        out = out | (kpos < lb - window)
+    return out
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     length: torch.Tensor, *, window: int = 0,
+                     softmax_scale: float | None = None,
+                     masked: torch.Tensor | None = None) -> torch.Tensor:
+    """Single-token attention against a KV cache.  q: (B, 1, H, hd); caches:
+    (B, S, H, hd), already GQA-repeated; ``length``: 0-dim or (B,) int, the
+    valid length; ``masked``: :func:`decode_mask` of ``length`` and
+    ``window``, when the caller has it.  q is scaled in its dtype; the
+    scores and the contraction with V accumulate in f32 from the
+    model-dtype operands (the reference's ``preferred_element_type=f32``),
+    softmax in f32, p cast to V's dtype."""
+    B, S, H, hd = k_cache.shape
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    qs = q * torch.tensor(scale, dtype=q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k_cache.float())       # (B, H, 1, S)
+    if masked is None:
+        masked = decode_mask(S, length, window)
+    p = torch.softmax(s.masked_fill(masked[:, None, None, :], -1e30), dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v_cache.dtype).float(), v_cache.float())
+    return o.to(q.dtype)
+
+
+def decode_attention_gqa(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                         length: torch.Tensor, *, window: int = 0,
+                         softmax_scale: float | None = None,
+                         masked: torch.Tensor | None = None) -> torch.Tensor:
+    """Single-token GQA attention against an un-repeated (B, S, KV, hd)
+    cache, with :func:`decode_attention`'s rounding and arguments."""
+    B, S, KV, hd = k_cache.shape
+    H = q.shape[2]
+    G = H // KV
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    qg = (q * torch.tensor(scale, dtype=q.dtype)).reshape(B, 1, KV, G, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k_cache.float())
+    if masked is None:
+        masked = decode_mask(S, length, window)
+    p = torch.softmax(s.masked_fill(masked[:, None, None, None, :], -1e30), dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype).float(), v_cache.float())
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor        # (L, B, S, KV, hd) in the model dtype
+    v: torch.Tensor        # (L, B, S, KV, hd)
+    length: torch.Tensor   # () int32 on the cache's device: tokens already in cache
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor,
            w_out: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ w_gate) * (x @ w_in)) @ w_out
+    return (_silu(x @ w_gate) * (x @ w_in)) @ w_out
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU.  Below f32 it takes ``jax.nn.silu``'s ops, x * (1 / (1 +
+    exp(-x))), each rounded to x's dtype as the reference rounds them: in
+    bf16 one rounding instead of four moves a third of the values by an ulp.
+    f32 keeps the single fused op, within an ulp of the reference's."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))

@@ -1,4 +1,5 @@
-"""Model API over the dense stack: forward, chunked cross-entropy loss.
+"""Model API over the dense stack: forward, chunked cross-entropy loss,
+KV-cache decode.
 
 Port of ``repro/models/model.py`` for the dense family.  ``batch`` is a dict
 ``{"tokens", "labels"}`` of ``(B, S)`` integer tensors.
@@ -13,10 +14,25 @@ import torch
 from . import transformer
 from .config import ArchConfig
 
-__all__ = ["init_params", "forward", "loss_fn", "param_group_shapes"]
+__all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
+           "param_group_shapes", "extra_inputs", "count_params"]
 
 init_params = transformer.init_params
 param_group_shapes = transformer.param_group_shapes
+init_cache = transformer.init_cache
+decode_step = transformer.decode_step
+
+
+def extra_inputs(cfg: ArchConfig, batch: int, seq: int, dtype=None) -> Dict[str, torch.Tensor]:
+    """Modality-frontend inputs: none for the dense family (the reference's
+    audio frames and vision embeddings belong to enc-dec and VLM models,
+    which are not ported)."""
+    transformer._check_dense(cfg)
+    return {}
+
+
+def count_params(params) -> int:
+    return sum(x.numel() for x in params.values())
 
 
 def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -18,24 +18,32 @@ forward (local training under ``torch.func.grad``, anything on the CPU)
 runs the plain ``layers.attention`` over repeated K/V, as the reference's
 ``model.forward`` does.  The reference defines no backward for its flash
 kernel, so training stays plain.
+
+Decode: ``init_cache`` builds the stacked ``(L, B, S, KV, hd)`` KV cache in
+the model dtype and ``decode_step`` runs one token against it, as the
+reference's decode path.  Its attention is the plain single-query
+``layers.decode_attention`` (the reference's too is outside any Pallas
+kernel); the flash kernel, which attends over equal query and key axes,
+never runs in a decode step.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
 from ..core import prng
 from ..kernels import ops
 from .config import ArchConfig
-from .layers import apply_rope, attention, repeat_kv, rms_norm, swiglu
+from .layers import (KVCache, apply_rope, attention, decode_attention, decode_attention_gqa,
+                     decode_mask, repeat_kv, rms_norm, swiglu)
 
 Params = Dict[str, torch.Tensor]
 
-__all__ = ["init_params", "forward_hidden", "forward", "param_group_shapes",
-           "padded_vocab"]
+__all__ = ["init_params", "forward_hidden", "forward", "init_cache", "decode_step",
+           "param_group_shapes", "padded_vocab"]
 
 _LAYER_KEYS = ("ln_attn", "ln_mlp", "attn_wq", "attn_wk", "attn_wv", "attn_wo",
                "mlp_wgate", "mlp_win", "mlp_wout")
@@ -101,6 +109,23 @@ def init_params(cfg: ArchConfig, key: torch.Tensor) -> Params:
     return p
 
 
+def _layer_windows(cfg: ArchConfig) -> List[int]:
+    """Per-layer sliding window (0 = full attention), from the pattern."""
+    return [cfg.sliding_window if k == "local" else 0 for k in cfg.layer_kinds()]
+
+
+def _embed(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    dt = _dtype(cfg)
+    x = params["embed"][tokens.long()].to(dt)
+    if cfg.scale_embed:       # multiplied in the model dtype
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
+    return x
+
+
+def _head(cfg: ArchConfig, params: Params) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
 def _layer_fwd(cfg: ArchConfig, x: torch.Tensor, w: Params, positions: torch.Tensor,
                window: int) -> torch.Tensor:
     """One pre-norm block: attention + SwiGLU FFN."""
@@ -127,25 +152,78 @@ def forward_hidden(cfg: ArchConfig, params: Params,
                    tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward up to the final norm: (hidden (B, S, D), head (D, V))."""
     _check_dense(cfg)
-    dt = _dtype(cfg)
-    x = params["embed"][tokens.long()].to(dt)
-    if cfg.scale_embed:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
+    x = _embed(cfg, params, tokens)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    for i, kind in enumerate(cfg.layer_kinds()):
+    for i, window in enumerate(_layer_windows(cfg)):
         w = {name: params[f"layers/{name}"][i] for name in _LAYER_KEYS}
-        window = cfg.sliding_window if kind == "local" else 0
         x = _layer_fwd(cfg, x, w, positions, window)
-    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return x, head
+    return rms_norm(x, params["ln_f"], cfg.norm_eps), _head(cfg, params)
 
 
 def forward(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
     """Full logits (B, S, V) in f32."""
     x, head = forward_hidden(cfg, params, tokens)
     return (x @ head).float()[..., : cfg.vocab]
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, length: int = 0,
+               device="cuda") -> KVCache:
+    """Stacked (L, B, S, KV, hd) KV cache of zeros in the model dtype on
+    ``device`` (the card unless the caller asks for the CPU); ``length``
+    marks pre-filled tokens."""
+    _check_dense(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    z = dict(dtype=_dtype(cfg), device=device)
+    return KVCache(k=torch.zeros(shape, **z), v=torch.zeros(shape, **z),
+                   length=torch.full((), length, dtype=torch.int32, device=device))
+
+
+@torch.no_grad()
+def decode_step(cfg: ArchConfig, params: Params, cache: KVCache,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, KVCache]:
+    """One new token (B, 1) against the KV cache; returns (logits (B, 1,
+    vocab) f32, cache).
+
+    The passed cache is consumed: its k and v are written in place at
+    ``cache.length`` (clamped to the last slot when the cache is full, as
+    the reference's ``dynamic_update_slice`` clamps) and returned in the
+    new cache, so serving holds one cache, not two.  The write's index
+    stays on the device: no host read."""
+    _check_dense(cfg)
+    B = tokens.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    x = _embed(cfg, params, tokens)
+    length = cache.length
+    positions = length.reshape(1, 1).expand(B, 1)
+    slot = length.clamp_max(cache.k.shape[2] - 1).reshape(1).long()
+    new_len = length + 1
+    windows = _layer_windows(cfg)
+    # one mask per window kind (Gemma3's local and global), not per layer
+    masks = {w: decode_mask(cache.k.shape[2], new_len, w) for w in set(windows)}
+    for i, window in enumerate(windows):
+        w = {name: params[f"layers/{name}"][i] for name in _LAYER_KEYS}
+        h = rms_norm(x, w["ln_attn"], cfg.norm_eps)
+        q = (h @ w["attn_wq"]).reshape(B, 1, H, hd)
+        k = (h @ w["attn_wk"]).reshape(B, 1, KV, hd)
+        v = (h @ w["attn_wv"]).reshape(B, 1, KV, hd)
+        if cfg.pos_type == "rope":
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        kc, vc = cache.k[i], cache.v[i]
+        kc.index_copy_(1, slot, k)
+        vc.index_copy_(1, slot, v)
+        if cfg.gqa_native and KV != H:
+            o = decode_attention_gqa(q, kc, vc, new_len, masked=masks[window])
+        else:
+            o = decode_attention(q, repeat_kv(kc, H // KV), repeat_kv(vc, H // KV), new_len,
+                                 masked=masks[window])
+        x = x + o.reshape(B, 1, H * hd) @ w["attn_wo"]
+        h2 = rms_norm(x, w["ln_mlp"], cfg.norm_eps)
+        x = x + swiglu(h2, w["mlp_wgate"], w["mlp_win"], w["mlp_wout"])
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = (x @ _head(cfg, params)).float()[..., : cfg.vocab]
+    return logits, KVCache(k=cache.k, v=cache.v, length=new_len)
 
 
 def param_group_shapes(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...], int]]:

@@ -37,7 +37,11 @@ stack that folds several clients' L matrices (the fused engine's call)
 give each client the bits of its own call; and, where the host has two
 cards, ``run_fl(devices=2)`` starts two NCCL ranks, a card each, whose
 ledger equals the single-device fused run's and whose eval losses are
-within 1e-5 (fedpaq 5e-4).
+within 1e-5 (fedpaq 5e-4); the KV-cache decode of Gemma3-1B reduced past
+its window against the CPU's within 1e-5 of max |logits|, written in place
+and without flash; the serve driver's ``randint`` and ``categorical``
+draws bit for bit against the CPU's; and a checkpoint of CUDA tensors
+restored onto the card bit for bit.
 
 Every test here needs a CUDA card and skips without one (the kernels have
 no CPU mode).  The file imports neither jax nor the JAX package, so it runs
@@ -851,3 +855,69 @@ def test_cuda_sharded_engine_on_two_cards_over_nccl(cuda, method, kw, atol):
     assert shard.extra.get("sum_d") == single.extra.get("sum_d")
     assert shard.eval_rounds == single.eval_rounds == [0, 2, 3]
     np.testing.assert_allclose(shard.eval_loss, single.eval_loss, rtol=0, atol=atol)
+
+
+def test_cuda_decode_matches_cpu(cuda):
+    """Gemma3-1B reduced (window 16) decoded for 24 steps on the card and
+    on the CPU: logits within 1e-5 of their largest magnitude (TF32 off),
+    the cache written in place on the card, no flash launch."""
+    cfg = get_config("gemma3-1b").reduced()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", cuda):
+            key = prng.PRNGKey(0, dev)
+            params = model.init_params(cfg, key)
+            tokens = prng.randint(key, (2, 24), 0, cfg.vocab)
+            cache = model.init_cache(cfg, 2, 32, device=dev)
+            k_ptr = cache.k.data_ptr()
+            ops.reset_launch_counts()
+            steps = []
+            for t in range(24):
+                lg, cache = model.decode_step(cfg, params, cache, tokens[:, t:t + 1])
+                steps.append(lg[:, 0])
+            assert cache.k.data_ptr() == k_ptr and int(cache.length) == 24
+            assert ops.launch_counts()["flash_attention"] == 0
+            out[str(dev)] = torch.stack(steps, 1).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    err = float((out["cuda"] - out["cpu"]).abs().max())
+    assert err <= 1e-5 * float(out["cpu"].abs().max())
+
+
+def test_cuda_randint_and_categorical_match_cpu(cuda):
+    """The serve driver's draws on the card: the same bits as the CPU's,
+    which equal jax's (``tests/test_torch_draws.py``)."""
+    for seed in (0, 7):
+        kc, kg = prng.PRNGKey(seed, "cpu"), prng.PRNGKey(seed, cuda)
+        for shape, hi in (((4, 16), 32000), ((3, 5), 262144), ((7,), 128256)):
+            assert torch.equal(prng.randint(kg, shape, 0, hi).cpu(),
+                               prng.randint(kc, shape, 0, hi))
+        logits = torch.randn(4, 262144, generator=torch.Generator().manual_seed(seed)) * 3
+        assert torch.equal(prng.gumbel(kg, (4, 262144)).cpu(), prng.gumbel(kc, (4, 262144)))
+        assert torch.equal(prng.categorical(kg, logits.to(cuda)).cpu(),
+                           prng.categorical(kc, logits))
+
+
+def test_cuda_checkpoint_roundtrip(cuda, tmp_path):
+    """CUDA tensors (bf16, f32, an int32 step) saved and restored onto the
+    card, bit for bit."""
+    from repro_torch import checkpoint
+    from repro_torch.optim import adam
+
+    gen = torch.Generator().manual_seed(0)
+    params = {"layers/w": torch.randn(3, 64, 32, generator=gen).to(cuda, torch.bfloat16),
+              "ln_f": torch.randn(32, generator=gen).to(cuda)}
+    init, update = adam(1e-3)
+    params, state = update({k: v * 0.5 for k, v in params.items()}, init(params), params)
+    tree = {"params": params, "opt": state}
+    checkpoint.save(str(tmp_path), 1, tree)
+    back = checkpoint.restore(str(tmp_path), 1, tree)
+    for k, v in params.items():
+        assert back["params"][k].is_cuda and back["params"][k].dtype == v.dtype
+        assert torch.equal(back["params"][k], v), k
+    for i in (0, 1):
+        for k, v in state.slots[i].items():
+            assert torch.equal(back["opt"].slots[i][k], v), (i, k)
+    assert back["opt"].step.is_cuda and int(back["opt"].step) == 1
