@@ -44,9 +44,11 @@ script exits non-zero:
    back-to-back with their host time per call and by CUDA kernel on A =
    M^T G, on A with +-0 every seventh value and on A = 0, summed per
    TinyLlama client-round (``coeff_wire_times``); flash_attention at TinyLlama's
-   eval shape (causal; also non-causal, and with bf16 inputs) and at
-   Gemma3-1B's (window 512 and window 0), within rtol = atol = 1e-4 in f32
-   and 5e-2 in bf16; CUDA-event times (median of 20 after warm-up) of the
+   eval shape (causal; also non-causal, and with bf16 inputs), at
+   Gemma3-1B's (window 512 and window 0) and granite-moe-1b-a400m's, and at
+   hd 128: qwen2-vl-72b's 256-token vision prefix and 64 text tokens (f32
+   and bf16) and dbrx-132b's serve check (bf16), within rtol = atol = 1e-4
+   in f32 and 5e-2 in bf16; CUDA-event times (median of 20 after warm-up) of the
    kernel, the plain version and the library call (cuBLAS for the GEMM
    kernels, ``scaled_dot_product_attention`` for flash), beside the
    data-sheet bound (3xTF32 work at the TF32 rate), and of the quantizer's
@@ -61,7 +63,10 @@ script exits non-zero:
    shapes and at two off the path; and ``ops.encode``, ``ops.decode`` and
    ``ops.encode_quant`` over a stack that folds 4 clients' L matrices (the
    fused engine's call: one launch each) against one call per client, bit
-   for bit, at every TinyLlama group shape;
+   for bit, at every TinyLlama group shape; and encode and decode at
+   granite-moe-1b-a400m's five compressed groups (its expert banks cut
+   into (2, 4096, 4096, 64), attn_wq and attn_wo (2, 1024, 1024, 64)),
+   checked and timed as at TinyLlama's, summed per client-round;
 4. slice: ``run_fl`` (loop engine) at TinyLlama-1.1B width, cut to 2
    layers and a 4096 vocab, for gradestc on the f32, int8 and bf16 wires,
    svdfed on the f32, bf16 and int8 wires, signsgd, fedpaq (8 and 6 bits),
@@ -70,7 +75,9 @@ script exits non-zero:
    compressed group once a round too), then fedavg; and at Gemma3-1B
    width, cut to 6 layers (one
    5:1 local:global pattern) and a 4096 vocab at seq 1024, for gradestc
-   and fedavg; the counts of all thirteen kernels (set to 0 just before
+   and fedavg; and at granite-moe-1b-a400m width (32 experts top 8), cut to
+   2 layers and a 4096 vocab, for gradestc and fedavg; the counts of all
+   thirteen kernels (set to 0 just before
    each run, read just after; flash_attention exactly n_layers x
    eval_batches per eval, none in local training), uplink bits (the flat
    codecs' against their closed form), eval loss, ms/round and peak
@@ -86,7 +93,12 @@ script exits non-zero:
    5 rounds, an eval every 4 (chunks (0, 1) and (1, 5)), each run beside its
    loop-engine twin: gradestc on the f32 and int8 wires, svdfed-int8,
    signsgd, fedpaq (8 bits) and fedavg at TinyLlama width, and gradestc at
-   Gemma3-1B's; host syncs by source line (one ``host_fetch`` per chunk
+   Gemma3-1B's; gradestc and fedavg at granite-moe's cut over phase 4's 3
+   rounds (an eval every 2, scan_rounds 2), their eval losses within
+   ``MOE_TWIN_RTOL``, and gradestc at the same cut with every expert
+   chosen (no routing decision) with the TinyLlama runs' 5 rounds, within
+   ``LOSS_RTOL``; host syncs by source line
+   (one ``host_fetch`` per chunk
    and per eval, 4; otherwise only ``core/rsvd.py``'s, one batched SVD a
    group and round), kernel launches (encode, decode, coeff_quant,
    encode_quant and decode_wire once per group and round; the flat wire
@@ -115,7 +127,8 @@ script exits non-zero:
 5. card vs CPU: a small config through the port on both, for every method
    and wire of phase 4 (the CPU side with ``use_pallas=True``, the card's
    block-local quantizer wire), gradestc and fedpaq on the fused engine,
-   and gradestc on Gemma3-1B's reduced config
+   gradestc on granite-moe-1b-a400m's reduced config at seq 32, and
+   gradestc on Gemma3-1B's reduced config
    at seq 32 (its 16-token window masks); per-round uplink equal, eval loss
    within the CPU parity tests' tolerance (5e-4 absolute for fedpaq,
    fedqclip and topk).  The card's eval forward runs the flash kernel, the
@@ -127,8 +140,10 @@ script exits non-zero:
    basis equals the client's bit for bit, Ghat equals ``reconstruct(M, A)``
    bit for bit, the payload's bytes are Formula 14's, and encode and decode
    each launch once;
-7. drivers: ``launch.serve.generate`` at TinyLlama-1.1B's and Gemma3-1B's
-   full published width and depth, in bf16, batch 4, prompt 16, 16 decode
+7. drivers: ``launch.serve.generate`` at TinyLlama-1.1B's, Gemma3-1B's and
+   granite-moe-1b-a400m's full published width and depth, and at
+   qwen2-vl-72b's and dbrx-132b's full width cut to 4 and 2 layers (72B
+   and 132B in bf16 do not fit one card), in bf16, batch 4, prompt 16, 16 decode
    steps, a 64-token cache: host syncs by source line (one, the tokens'
    fetch) and kernel launches (none) in prefill and decode, then a warm run
    timed (ms per step, tokens/s, peak memory); the decode logits over the
@@ -136,7 +151,12 @@ script exits non-zero:
    launches) within ``DECODE_TOL`` of max |logits|; against the same
    forward in f32 (TF32 off), the bf16 decode no farther than
    ``BF16_F32_FACTOR`` times the bf16 forward, and the decode in f32 within
-   ``F32_DECODE_TOL``, which tells a wrong decode from bf16's rounding;
+   ``F32_DECODE_TOL``, which tells a wrong decode from bf16's rounding
+   (the MoE configs at capacity 8.0, where nothing is dropped; in bf16
+   the router's rounded input moves tokens to other experts, so their
+   bf16 decode is held to the forward within DECODE_TOL with every expert
+   chosen, where no routing decision can flip); qwen2-vl's forward over a 256-token vision
+   prefix, flash against the card's plain attention, in bf16 and f32;
    TinyLlama's params after one Adam step and the Adam state
    saved by ``checkpoint.save`` and restored onto the card bit for bit,
    with the bytes and seconds; Gemma3-1B reduced (window 16) decoded for
@@ -200,10 +220,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM data-sheet peaks (NVIDIA): HBM3 bandwidth, FP32 on the CUDA cores
-# and dense TF32 on the tensor cores.
+# and dense TF32 and BF16 on the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_TF32_FLOP_PER_S = 495e12
+PEAK_BF16_FLOP_PER_S = 989e12
 KERNEL_RTOL = 1e-5        # ||kernel - plain||_F <= KERNEL_RTOL * ||G||_F
 LOSS_RTOL = 1e-5          # eval-loss tolerance of the CPU parity tests
 HALF_MARGIN = 1e-4        # int8 codes may differ by one this close to x.5
@@ -212,6 +233,14 @@ SCALE_RTOL = 1e-6         # encode_quant's scales (max |A| of its own GEMM)
 #: in a delta can flip a rounding draw and move one weight by a whole step;
 #: the reference's own tolerance for these codecs across its engines
 QUANT_LOSS_ATOL = 5e-4
+
+#: fused against loop eval loss of a model that routes (granite-moe, top 8
+#: of 32 experts): a top-k choice is a step function of the router's
+#: logits, and the ~1e-5 by which vmapped and per-client local training
+#: differ moves some tokens to another expert (measured on an H100: 1.4e-5
+#: after 3 rounds; over 5 a decision flips a Formula 13 d; with every
+#: expert chosen 2.2e-7, and phase 4b holds that run to LOSS_RTOL)
+MOE_TWIN_RTOL = 1e-4
 
 #: the methods held within QUANT_LOSS_ATOL across devices: the stochastic
 #: quantizers, and top-k, where a delta an ulp apart can flip which entry
@@ -237,6 +266,9 @@ SLICE_RUNS = (("gradestc", "gradestc", {"wire_dtype": "f32"}, {}),
               ("gradestc-downlink", "gradestc", {}, {"downlink_compress": True}),
               ("fedavg", "fedavg", {}, {}))
 GEMMA_RUNS = (("gemma3-gradestc", "gradestc", {}, {}), ("gemma3-fedavg", "fedavg", {}, {}))
+#: phase 4's and 4b's runs at granite-moe-1b-a400m width (``granite_cut``),
+#: with TinyLlama's settings: the MoE family through FL rounds
+GRANITE_RUNS = (("granite-gradestc", "gradestc", {}, {}), ("granite-fedavg", "fedavg", {}, {}))
 #: the flat codecs compress every group; the others the policy's compressed ones
 FLAT_METHODS = ("signsgd", "fedpaq", "fedqclip", "topk")
 #: the codec kernels each run must launch (once per codec group per client
@@ -253,7 +285,9 @@ RUN_KERNELS = {"gradestc": ("encode", "decode"), "gradestc-bf16": ("encode", "de
                "fedpaq": ("quant_pack", "unpack_dequant"),
                "fedpaq-6bit": ("block_quant", "block_dequant"),
                "fedqclip": ("quant_pack", "unpack_dequant"),
-               "gemma3-gradestc": ("encode", "decode")}
+               "gemma3-gradestc": ("encode", "decode"),
+               "granite-gradestc": ("encode", "decode"),
+               "granite-top32-gradestc": ("encode", "decode")}
 
 
 def log(phase: str, msg: str) -> None:
@@ -387,13 +421,71 @@ class CoeffZeros:
         return int(self._counts[:self.calls].sum())
 
 
-def bound_ms(nbytes: float, flops: float, tf32_flops: float = 0.0):
+def slice_run(label: str, method: str, mkw, ckw, a, pol, rkw):
+    """Phase 4's run of one method at one cut (loop engine, an eval every
+    round): kernel launches (``RUN_KERNELS``: once per compressed group,
+    client and round; flash n_layers x eval batches per eval and none in
+    local training), host syncs by site, uplink, eval loss, ms per round and
+    peak memory.  Returns (the FLResult, the launch counts)."""
+    from repro_torch.core import metrics
+    from repro_torch.kernels import ops
+
+    n_clients, rounds = rkw["n_clients"], rkw["rounds"]
+    groups = (len(pol.plans) if method in FLAT_METHODS
+              else sum(p.compress for p in pol.plans.values()))
+    encoders = n_clients + bool(ckw.get("downlink_compress"))
+    expect = groups * encoders * rounds
+    flash_per_eval = a.n_layers * 4          # FLConfig.eval_batches
+    flash_seen = []
+
+    def after_eval(rnd, _):
+        # eval_every=1: round rnd's eval is the (rnd+1)-th; local training
+        # ran in between, and must have launched no flash
+        flash_seen.append(ops.launch_counts()["flash_attention"])
+        if flash_seen[-1] != flash_per_eval * len(flash_seen):
+            raise AssertionError(f"{label}: {flash_seen[-1]} flash launches after "
+                                 f"{len(flash_seen)} evals, expected "
+                                 f"{flash_per_eval * len(flash_seen)}")
+
+    zeros = CoeffZeros() if label == "gradestc-int8" else contextlib.nullcontext()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    metrics.reset_host_sync_count()
+    with SyncCounter() as syncs, zeros:
+        res = run_slice(method, a, "cuda", progress=after_eval, method_kw=mkw, **rkw, **ckw)
+        torch.cuda.synchronize()
+    if label == "gradestc-int8":
+        log("slice", f"{label}: coeff_quant saw {zeros.calls} A_new, {zeros.zeros()} of "
+                     f"{zeros.values} coefficients exactly +-0 "
+                     f"({zeros.zeros() / zeros.values:.3e})")
+    launches = ops.launch_counts()
+    check_syncs(label, method, syncs.sites, metrics.host_sync_count(),
+                rounds + len(res.eval_rounds))
+    ms_round = 1e3 * statistics.mean(res.extra["round_wall_s"][1:])
+    log("slice", f"{label}: ms/round(rounds 1-2) {ms_round:.1f} "
+                 f"uplink bytes {res.ledger.uplink_total:.0f} per-round "
+                 f"{res.ledger.per_round_uplink} downlink bits {res.ledger.downlink_bits} "
+                 f"sum_d {res.extra.get('sum_d')} eval loss {res.eval_loss} "
+                 f"launches {launches} flash after each eval {flash_seen} "
+                 f"max_memory_allocated {torch.cuda.max_memory_allocated()} B "
+                 f"wall {res.wall_s:.1f} s")
+    if not all(math.isfinite(x) for x in res.eval_loss):
+        raise AssertionError(f"{label}: non-finite eval loss {res.eval_loss}")
+    want = {name: expect if name in RUN_KERNELS.get(label, ()) else 0 for name in ops.KERNELS}
+    want["flash_attention"] = flash_per_eval * len(res.eval_rounds)
+    if launches != want or len(flash_seen) != len(res.eval_rounds):
+        raise AssertionError(f"{label}: launch counts {launches}, expected {want}")
+    return res, launches
+
+
+def bound_ms(nbytes: float, flops: float, tf32_flops: float = 0.0, bf16_flops: float = 0.0):
     """The least time for the work: the larger of its bytes over the HBM
     rate and its operations over their unit's peak -- ``flops`` in FP32 on
-    the CUDA cores, ``tf32_flops`` on the tensor cores (the two units run at
-    once).  Returns (ms, "bytes" or "operations")."""
+    the CUDA cores, ``tf32_flops`` and ``bf16_flops`` on the tensor cores
+    (the two units run at once).  Returns (ms, "bytes" or "operations")."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = max(flops / PEAK_FP32_FLOP_PER_S, tf32_flops / PEAK_TF32_FLOP_PER_S)
+    t_ops = max(flops / PEAK_FP32_FLOP_PER_S,
+                tf32_flops / PEAK_TF32_FLOP_PER_S + bf16_flops / PEAK_BF16_FLOP_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -423,6 +515,25 @@ def slice_and_gemma():
     arch, gemma = slice_arch(), gemma_arch()
     return (arch, make_policy(model.param_group_shapes(arch), min_params=4096),
             gemma, make_policy(model.param_group_shapes(gemma), min_params=4096))
+
+
+def granite_cut():
+    """granite-moe-1b-a400m at its published widths (d 1024, 16 heads over
+    8 KV, hd 64, d_ff 512, 32 experts top 8, capacity 1.25), cut to 2
+    layers and a 4096 vocab, f32, with its policy: (arch, policy)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import make_policy
+    from repro_torch.models import model
+
+    a = dataclasses.replace(get_config("granite-moe-1b-a400m"), n_layers=2, vocab=4096,
+                            dtype="float32", remat=False)
+    return a, make_policy(model.param_group_shapes(a), min_params=4096)
+
+
+def compressed_counts(policy):
+    """{(L, l, m, k): how many compressed groups have that shape}."""
+    return collections.Counter((p.stack, p.l, p.m, p.k) for p in policy.plans.values()
+                               if p.compress)
 
 
 def small_arch():
@@ -763,6 +874,17 @@ def phase_encode_gemma(shapes, group_counts):
             tot[name]["library_ms"] += w * lib_ms
             tot[name]["bound_ms"] += w * bms
     log_gemm_totals("gemma3", tot)
+
+
+def phase_granite_kernels(counts):
+    """encode and decode at granite-moe-1b-a400m's compressed groups: the
+    three expert banks, (E, D, F) cut into (l, m) = (4096, 4096), and
+    attn_wq / attn_wo at (1024, 1024), all k 64, stack 2; ``phase_kernels``'
+    checks and times, and the sums over one client-round beside the two
+    cuBLAS GEMMs (encode), the matmul (decode) and the bounds."""
+    tot, _ = phase_kernels(sorted(counts), counts)
+    log_gemm_totals("granite-moe", tot, ("encode", "decode"))
+    return tot
 
 
 def log_chain_order(shapes):
@@ -1344,26 +1466,36 @@ def visible_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
     return int(ok.sum())
 
 
-#: phase 3's flash cases: (label, (B, S, H, KV, hd), causal, window, dtype);
-#: the JSON row holds the first (TinyLlama's eval, per call) and, under
-#: "at", every f32 causal one
+#: phase 3's flash cases: (label, (B, S, H, KV, hd), causal, window, dtype):
+#: the eval shapes of TinyLlama, Gemma3-1B and granite-moe-1b-a400m (phase
+#: 4), qwen2-vl-72b's 256-token vision prefix and 64 text tokens and
+#: dbrx-132b's serve check forward (phase 7), both at hd 128; the JSON row
+#: holds the first (TinyLlama's eval, per call) and, under "at", every
+#: causal one
 FLASH_CASES = (("tinyllama", (4, 256, 32, 4, 64), True, 0, torch.float32),
                ("tinyllama non-causal", (4, 256, 32, 4, 64), False, 0, torch.float32),
                ("tinyllama bf16", (4, 256, 32, 4, 64), True, 0, torch.bfloat16),
                ("gemma3 window 512", (2, 1024, 4, 1, 256), True, 512, torch.float32),
-               ("gemma3 window 0", (2, 1024, 4, 1, 256), True, 0, torch.float32))
+               ("gemma3 window 0", (2, 1024, 4, 1, 256), True, 0, torch.float32),
+               ("granite-moe", (4, 256, 16, 8, 64), True, 0, torch.float32),
+               ("qwen2-vl 256 + 64", (1, 320, 64, 8, 128), True, 0, torch.float32),
+               ("qwen2-vl 256 + 64 bf16", (1, 320, 64, 8, 128), True, 0, torch.bfloat16),
+               ("dbrx serve bf16", (4, 32, 48, 8, 128), True, 0, torch.bfloat16))
 
 
 def flash_bound(q, k, v, causal, window):
     """flash's bound: q, k and v read, o written; QK^T and P.V, 4 hd
-    operations per visible (query, key) pair and head, in 3xTF32 on the
-    tensor cores, and the softmax's max, subtraction, exponential and sum
+    operations per visible (query, key) pair and head, on the tensor cores
+    -- in 3xTF32 (three TF32 passes) for f32 inputs, in one bf16 pass for
+    bf16 ones -- and the softmax's max, subtraction, exponential and sum
     (4 per pair) in FP32.  Returns (ms, by, flops)."""
     B, S, H, hd = q.shape
     pairs = B * H * visible_pairs(S, k.shape[1], causal, window)
     flops = 4 * hd * pairs
+    tc = ({"bf16_flops": flops} if q.dtype == torch.bfloat16
+          else {"tf32_flops": 3 * flops})
     ms, by = bound_ms(q.element_size() * (2 * q.numel() + k.numel() + v.numel()), 4 * pairs,
-                      3 * flops)
+                      **tc)
     return ms, by, flops
 
 
@@ -1430,7 +1562,7 @@ def phase_flash():
         log_b2b("flash_attention", fn, lib_fn, 1, row, flops)
         if main is None:
             main = (row, by)
-        if dt == torch.float32 and causal:
+        if causal:
             at[f"{label} (B, S, H, KV, hd) = {(B, S, H, KV, hd)}"] = {
                 key: row[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "b2b_ms",
                                           "b2b_library_ms", "host_us", "err")}
@@ -1452,6 +1584,27 @@ def check_syncs(label: str, method: str, sites, fetches: int, expect_fetches: in
     if fetch_syncs != fetches or fetches != expect_fetches or bad:
         raise AssertionError(f"{label}: unexpected host syncs {bad}, host_fetch "
                              f"{fetch_syncs}/{fetches}/{expect_fetches}")
+
+
+#: the parameters of phase 4's three cuts, by run-label prefix
+CUT_PARAMS = {"": 104_867_840, "gemma3-": 165_755_520, "granite-": 115_414_016}
+
+
+def check_raw_uplink(bits, prefix: str, a, n_clients: int, rounds: int) -> int:
+    """fedavg's uplink at one cut (run labels ``prefix + method``): 32 bits a
+    parameter, every client and round, for CUT_PARAMS[prefix] parameters;
+    gradestc's under it (at TinyLlama width the caller checks the wires'
+    order).  Returns fedavg's bits."""
+    from repro_torch.models import model
+
+    n_params = sum(math.prod(shape) * stack
+                   for shape, stack in model.param_group_shapes(a).values())
+    raw = 32 * n_params * n_clients * rounds
+    fedavg, gradestc = bits[prefix + "fedavg"], bits[prefix + "gradestc"]
+    if n_params != CUT_PARAMS[prefix] or fedavg != raw or not gradestc < raw:
+        raise AssertionError(f"{prefix}fedavg uplink {fedavg} bits, params {n_params}, "
+                             f"expected {raw}; {prefix}gradestc {gradestc}")
+    return raw
 
 
 def check_ablations(runs, policy, n_clients: int, rounds: int, raw_bits: int) -> None:
@@ -1581,6 +1734,19 @@ FUSED_RUNS = (("gradestc", "gradestc", {"wire_dtype": "f32"}),
               ("gemma3-gradestc", "gradestc", {}))
 
 
+#: phase 4b's granite runs: phase 4's, and gradestc with every expert
+#: chosen (top 32 of 32): no routing decision, so its twins agree as a
+#: dense model's do
+GRANITE_FUSED_RUNS = tuple(run[:3] for run in GRANITE_RUNS) + (
+    ("granite-top32-gradestc", "gradestc", {}),)
+#: phase 4b's settings of the granite runs that route: phase 4's 3 rounds;
+#: over 5, a routing decision parts the fused and loop twins (MOE_TWIN_RTOL)
+GRANITE_FUSED = dict(rounds=3, eval_every=2, scan_rounds=2)
+#: the key of encode's and decode's granite-moe sums in the JSON rows
+GRANITE_GROUPS = ("granite-moe per client-round: (2, 4096, 4096, 64) x3 (expert banks), "
+                  "(2, 1024, 1024, 64) x2 (attn_wq, attn_wo)")
+
+
 def fused_settings(n_clients: int = 4):
     """Phase 4b's (and 4c's) rounds, eval cadence, K and FLConfig fields at
     TinyLlama width and at Gemma3-1B width."""
@@ -1590,22 +1756,34 @@ def fused_settings(n_clients: int = 4):
     return rounds, eval_every, scan, kw, {**kw, "batch": 2, "seq": 1024}
 
 
-def phase_fused(arch, policy, gemma, gemma_policy, n_clients: int = 4) -> dict:
-    """Phase 4b: each FUSED_RUNS entry on the fused engine (scan_rounds 4)
-    and on the loop, 5 rounds with an eval every 4, so the fused chunks are
-    (0, 1) and (1, 5).  Checks syncs, launches, uplink and eval loss against
-    the twin; returns {label: {engine: numbers, "result": the fused
-    FLResult}}."""
+def phase_fused(arch, policy, gemma, gemma_policy, n_clients: int = 4, entries=FUSED_RUNS,
+                granite=None) -> dict:
+    """Phase 4b: each entry of ``entries`` on the fused engine and on the
+    loop: FUSED_RUNS with scan_rounds 4, 5 rounds and an eval every 4, so
+    the fused chunks are (0, 1) and (1, 5); GRANITE_FUSED_RUNS (with
+    ``granite`` = ``granite_cut()``) with phase 4's 3 rounds, an eval every
+    2 and scan_rounds 2: chunks (0, 1) and (1, 3), but the top-32 run with
+    FUSED_RUNS' settings.  Checks syncs, launches,
+    uplink and eval loss against the twin; returns {label: {engine:
+    numbers, "result": the fused FLResult}}."""
     from repro_torch.core import metrics
     from repro_torch.fl.engine import plan_chunks
     from repro_torch.kernels import ops
 
-    rounds, eval_every, scan, kw, gemma_kw = fused_settings(n_clients)
-    chunks = plan_chunks(rounds, eval_every, scan)
+    _, _, _, kw, gemma_kw = fused_settings(n_clients)
     out = {}
-    for label, method, mkw in FUSED_RUNS:
-        a, pol, rkw = (gemma, gemma_policy, gemma_kw) if label.startswith("gemma3") else (
-            arch, policy, kw)
+    for label, method, mkw in entries:
+        if label.startswith("gemma3"):
+            a, pol, rkw = gemma, gemma_policy, gemma_kw
+        elif label.startswith("granite-top32"):
+            a, pol, rkw = (dataclasses.replace(granite[0], experts_per_tok=granite[0].n_experts),
+                           granite[1], kw)
+        elif label.startswith("granite"):
+            a, pol, rkw = (*granite, {**kw, **GRANITE_FUSED})
+        else:
+            a, pol, rkw = arch, policy, kw
+        rounds = rkw["rounds"]
+        chunks = plan_chunks(rounds, rkw["eval_every"], rkw["scan_rounds"])
         groups = (len(pol.plans) if method in FLAT_METHODS
                   else sum(p.compress for p in pol.plans.values()))
         runs, row = {}, {}
@@ -1652,7 +1830,7 @@ def phase_fused(arch, policy, gemma, gemma_policy, n_clients: int = 4) -> dict:
         dif = max(abs(x - y) for x, y in zip(fused.eval_loss, loop.eval_loss))
         rel = max(abs(x - y) / abs(y) for x, y in zip(fused.eval_loss, loop.eval_loss))
         ratio = row["fused"]["ms_round"] / row["loop"]["ms_round"]
-        log("fused", f"{label}: ms/round (rounds 1-4 and an eval) fused "
+        log("fused", f"{label}: ms/round (rounds 1-{rounds - 1} and an eval) fused "
                      f"{row['fused']['ms_round']:.1f} loop {row['loop']['ms_round']:.1f} ratio "
                      f"{ratio:.3f}; peak max_memory_allocated fused {row['fused']['peak_bytes']} B "
                      f"loop {row['loop']['peak_bytes']} B; host_fetch {row['fused']['host_fetch']} "
@@ -1672,7 +1850,8 @@ def phase_fused(arch, policy, gemma, gemma_policy, n_clients: int = 4) -> dict:
                                  f"loop {loop.ledger.per_round_uplink_bits}")
         if method in ATOL_METHODS and dif > QUANT_LOSS_ATOL:
             raise AssertionError(f"{label}: fused eval loss differs by {dif:.3e}")
-        if method not in ATOL_METHODS and rel > LOSS_RTOL:
+        routes = 0 < a.experts_per_tok < a.n_experts
+        if method not in ATOL_METHODS and rel > (MOE_TWIN_RTOL if routes else LOSS_RTOL):
             raise AssertionError(f"{label}: fused eval loss differs by {rel:.3e}")
         if method.startswith("gradestc") and (
                 row["fused"]["rsvd_syncs"] * n_clients != row["loop"]["rsvd_syncs"]):
@@ -1680,6 +1859,38 @@ def phase_fused(arch, policy, gemma, gemma_policy, n_clients: int = 4) -> dict:
                                  f", loop {row['loop']['rsvd_syncs']}")
         out[label] = {**row, "result": fused}
     return out
+
+
+#: phase 5's runs: 3 clients, 3 rounds, an eval every 2
+PARITY_SMALL = dict(rounds=3, n_clients=3, local_steps=1, batch=2, seq=16, eval_every=2)
+
+
+def granite_parity():
+    """Phase 5's MoE run: gradestc on granite-moe-1b-a400m's reduced config
+    at seq 32 (4 experts top 2, capacity 1.25)."""
+    from repro_torch.configs import get_config
+
+    return [("granite-moe-reduced gradestc", "gradestc", {},
+             get_config("granite-moe-1b-a400m").reduced(), {**PARITY_SMALL, "seq": 32})]
+
+
+def parity_run(label: str, method: str, mkw, a, skw) -> None:
+    """Phase 5: one run on the card and on the CPU (its block-local
+    quantizer wire, as the card's): per-round uplink equal, eval loss
+    within LOSS_RTOL (QUANT_LOSS_ATOL for ATOL_METHODS)."""
+    gpu = run_slice(method, a, "cuda", method_kw=mkw, **skw)
+    cpu = run_slice(method, a, "cpu", use_pallas=True, method_kw=mkw, **skw)
+    rel = max(abs(x - y) / abs(y) for x, y in zip(gpu.eval_loss, cpu.eval_loss))
+    dif = max(abs(x - y) for x, y in zip(gpu.eval_loss, cpu.eval_loss))
+    log("parity", f"{label}: uplink/round card {gpu.ledger.per_round_uplink} "
+                  f"cpu {cpu.ledger.per_round_uplink}; eval loss card {gpu.eval_loss} "
+                  f"cpu {cpu.eval_loss} max rel diff {rel:.3e} abs {dif:.3e}")
+    if gpu.ledger.per_round_uplink_bits != cpu.ledger.per_round_uplink_bits:
+        raise AssertionError(f"{label}: per-round uplink differs between card and CPU")
+    if method in ATOL_METHODS and dif > QUANT_LOSS_ATOL:
+        raise AssertionError(f"{label}: eval loss differs by {dif:.3e} > {QUANT_LOSS_ATOL}")
+    if method not in ATOL_METHODS and rel > LOSS_RTOL:
+        raise AssertionError(f"{label}: eval loss differs by {rel:.3e} > {LOSS_RTOL}")
 
 
 def run_slice(method: str, arch, device: str, progress=None, engine: str = "loop", **kw):
@@ -2010,9 +2221,12 @@ def profile_kernels(group_counts, flat_counts) -> None:
                                                       for kernel, t in us.items()))
 
 
-#: phase 7's serve runs: full published width and depth, each config's own
-#: dtype (bf16); batch, prompt, decode steps and cache length
-SERVE_ARCHS = ("tinyllama-1.1b", "gemma3-1b")
+#: phase 7's serve runs at full published width in each config's own dtype
+#: (bf16): (name, depth cut or None) -- qwen2-vl-72b and dbrx-132b cut
+#: because 72B / 132B in bf16 do not fit one 80 GB card; batch, prompt,
+#: decode steps and cache
+SERVE_RUNS = (("tinyllama-1.1b", None), ("gemma3-1b", None), ("granite-moe-1b-a400m", None),
+              ("qwen2-vl-72b", 4), ("dbrx-132b", 2))
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX_LEN = 4, 16, 16, 64
 #: decode against one forward over the same tokens, as the reference's
 #: ``test_decode_matches_forward``: max |diff| <= DECODE_TOL * max |logits|
@@ -2041,17 +2255,22 @@ def decode_logits(cfg, params, tokens, max_len: int):
     return torch.stack(outs, dim=1)
 
 
-def serve_full(name: str):
-    """Phase 7(a) for one config: ``launch.serve.generate`` at full width
-    (its loops' syncs and launches counted), timed warm, and its tokens'
-    decode logits against one forward.  Returns the params."""
-    from repro_torch.configs import get_config
+def serve_full(cfg):
+    """Phase 7(a) for one config, with ``init_params`` of seed 0:
+    ``launch.serve.generate`` (its loops' syncs and launches counted), timed
+    warm, and its tokens' decode logits against one forward; an MoE config
+    checks with ``capacity_factor`` 8.0, where no token is dropped in
+    either.  A config that routes holds its bf16 decode to the forward
+    within DECODE_TOL with every expert chosen (``moe_every_expert``), and
+    with its own top k in f32 only (F32_DECODE_TOL; the bf16 decode, as for
+    every config, no farther from the f32 forward than BF16_F32_FACTOR
+    times the bf16 forward).  Returns the params."""
     from repro_torch.core import prng
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import generate
     from repro_torch.models import model
 
-    cfg = get_config(name)
+    name = f"{cfg.name} ({cfg.n_layers} layers)"
     t0 = time.perf_counter()
     key = prng.PRNGKey(0, "cuda")
     params = model.init_params(cfg, key)
@@ -2082,6 +2301,8 @@ def serve_full(name: str):
                    f"peak memory {peak} B (held before: {held} B, the weights); first ids "
                    f"{gen[0].tolist()}")
     tokens = torch.cat([prompts.long(), torch.from_numpy(gen).cuda()], dim=1)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
     ops.reset_launch_counts()
     dec = decode_logits(cfg, params, tokens, SERVE_MAX_LEN)
     dec_flash = ops.launch_counts()["flash_attention"]
@@ -2108,14 +2329,105 @@ def serve_full(name: str):
                    f"forward {fwd_off:.4e} (factor {dec_off / fwd_off:.3f}, tol "
                    f"{BF16_F32_FACTOR}); f32 decode vs f32 forward {err32:.4e} (tol "
                    f"{F32_DECODE_TOL}); flash launches: decode {dec_flash}, forward "
-                   f"{fwd_flash} (n_layers {cfg.n_layers})")
-    ok = (math.isfinite(err) and err <= DECODE_TOL * scale
+                   f"{fwd_flash} (n_layers {cfg.n_layers})"
+                   + (", capacity_factor 8.0" if cfg.n_experts else ""))
+    # a model that routes holds its own top k against the forward in f32:
+    # in bf16 the rounding of the router's input moves tokens to other
+    # experts in either path (the bf16 forward stands 4.7e-2 and 0.31 of
+    # max |logits| from the f32 one at granite-moe and dbrx, on an H100)
+    routes = 0 < cfg.experts_per_tok < cfg.n_experts
+    ok = (math.isfinite(err) and (routes or err <= DECODE_TOL * scale)
           and dec_off <= BF16_F32_FACTOR * fwd_off and err32 <= F32_DECODE_TOL)
     if not ok or dec_flash != 0 or fwd_flash != cfg.n_layers:
         raise AssertionError(f"{name}: decode vs forward {err / scale:.3e}, vs f32 "
                              f"{dec_off:.3e} (bf16 forward {fwd_off:.3e}), f32 decode "
                              f"{err32:.3e}, flash {dec_flash}/{fwd_flash}")
+    if routes:
+        moe_every_expert(cfg, params, tokens)
     return params
+
+
+def moe_every_expert(cfg, params, tokens) -> None:
+    """The bf16 decode of an MoE config against one bf16 forward within
+    DECODE_TOL of max |logits|, with every expert chosen (capacity 8.0, so
+    none is dropped): no routing decision can flip, so this holds the MoE
+    decode's arithmetic as tightly as a dense model's."""
+    from repro_torch.models import model
+
+    every = dataclasses.replace(cfg, experts_per_tok=cfg.n_experts)
+    dec = decode_logits(every, params, tokens, SERVE_MAX_LEN)
+    with torch.no_grad():
+        fwd = model.forward(every, params, {"tokens": tokens})
+    err = (dec - fwd).abs().max().item()
+    scale = fwd.abs().max().item()
+    log("drivers", f"{cfg.name} ({cfg.n_layers} layers) every expert chosen (top "
+                   f"{every.experts_per_tok} of {every.n_experts}), bf16: decode vs forward "
+                   f"over {tokens.shape[1]} tokens: max |diff| {err:.4e}, max |logits| "
+                   f"{scale:.4e}, ratio {err / scale:.4e} (tol {DECODE_TOL})")
+    if not err <= DECODE_TOL * scale:
+        raise AssertionError(f"{cfg.name}: every expert chosen, bf16 decode vs forward "
+                             f"{err / scale:.3e}")
+
+
+#: qwen2-vl's prefix check: the stub's 256 patch embeddings (a 16 x 16
+#: grid) and 64 text tokens, batch 1
+VLM_GRID, VLM_TEXT = 16, 64
+
+
+def vlm_prefix_check(cfg, params) -> None:
+    """Phase 7(a) for the VLM: one forward over a random 256-token vision
+    prefix and 64 text tokens with Qwen2-VL's M-RoPE streams (the prefix at
+    t = 0, h and w its grid row and column; the text after, all three at
+    16 + i), with flash (grad disabled, n_layers launches) against the
+    card's plain attention (grad enabled, none): in bf16 within DECODE_TOL
+    of max |logits|, and with the params widened to f32 (TF32 off) within
+    F32_DECODE_TOL."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+
+    P = VLM_GRID * VLM_GRID
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    grid = torch.arange(P, device="cuda")
+    text = VLM_GRID + torch.arange(VLM_TEXT, device="cuda")
+    pos = torch.stack([torch.cat([torch.zeros_like(grid), text]),
+                       torch.cat([grid // VLM_GRID, text]),
+                       torch.cat([grid % VLM_GRID, text])]).int()[:, None]      # (3, 1, P + S)
+    tokens = prng.randint(prng.PRNGKey(2, "cuda"), (1, VLM_TEXT), 0, cfg.vocab)
+    embeds = torch.randn(1, P, cfg.d_model, device="cuda", generator=gen)
+    f32 = None
+    for dt, tol in (("float32", F32_DECODE_TOL), ("bfloat16", DECODE_TOL)):
+        c = dataclasses.replace(cfg, dtype=dt)
+        p = params if dt == cfg.dtype else {k: v.float() for k, v in params.items()}
+        batch = {"tokens": tokens, "vision_embeds": embeds.to(getattr(torch, dt)),
+                 "positions": pos}
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            flash = model.forward(c, p, batch)
+        launched = ops.launch_counts()["flash_attention"]
+        with torch.enable_grad():
+            plain = model.forward(c, p, batch)
+        plain_launches = ops.launch_counts()["flash_attention"] - launched
+        del p
+        scale = plain.abs().max().item()
+        err = (flash - plain).abs().max().item() / scale
+        if f32 is None:
+            f32, vs32 = flash, ""
+        else:
+            off = [(x - f32).abs().max().item() / scale for x in (flash, plain)]
+            vs32 = f"; against the f32 forward: flash {off[0]:.4e}, plain {off[1]:.4e}"
+        log("drivers", f"{cfg.name} ({cfg.n_layers} layers) {dt}: forward over a {P}-token "
+                       f"vision prefix and {VLM_TEXT} text tokens (logits "
+                       f"{tuple(flash.shape)}), flash against plain attention: max |diff| / "
+                       f"max |logits| {err:.4e} (tol {tol}){vs32}; flash launches {launched} "
+                       f"(n_layers {cfg.n_layers}), plain {plain_launches}")
+        if (not err <= tol or launched != cfg.n_layers or plain_launches
+                or flash.shape != (1, P + VLM_TEXT, cfg.vocab)):
+            raise AssertionError(f"{cfg.name} {dt}: flash vs plain {err:.3e}, launches "
+                                 f"{launched}/{plain_launches}")
+        del plain
+    del f32, flash
+    torch.cuda.empty_cache()
 
 
 def reduced_past_window() -> None:
@@ -2226,18 +2538,31 @@ def checkpoint_roundtrip(params) -> None:
         raise AssertionError("checkpoint: restored tree differs from the saved one")
 
 
+def serve_one(name: str, layers) -> None:
+    """One SERVE_RUNS entry: ``serve_full``, then the VLM's prefix check or
+    TinyLlama's checkpoint round trip."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    params = serve_full(cfg)
+    if cfg.family == "vlm":
+        vlm_prefix_check(cfg, params)
+    if name == "tinyllama-1.1b":
+        checkpoint_roundtrip(params)
+    del params
+    torch.cuda.empty_cache()
+
+
 def phase_drivers(watcher) -> None:
     """Phase 7: serve at full width (TinyLlama's params then through a
-    checkpoint round trip), the reduced Gemma3 past its window, the train
-    driver, and the build watcher."""
+    checkpoint round trip; qwen2-vl-72b's prefix check), the reduced Gemma3
+    past its window, the train driver, and the build watcher."""
     t0 = time.perf_counter()
     mark = watcher.snapshot()
-    for name in SERVE_ARCHS:
-        params = serve_full(name)
-        if name == "tinyllama-1.1b":
-            checkpoint_roundtrip(params)
-        del params
-        torch.cuda.empty_cache()
+    for name, layers in SERVE_RUNS:
+        serve_one(name, layers)
     reduced_past_window()
     train_driver()
     builds, build_s = watcher.since(0)
@@ -2301,6 +2626,7 @@ def main() -> int:
     from repro_torch.models import model
 
     arch, policy, gemma, gemma_policy = slice_and_gemma()
+    granite = granite_cut()
     group_counts = {}
     for plan in policy.plans.values():
         if plan.compress:
@@ -2314,9 +2640,9 @@ def main() -> int:
     bound_by.update(wbound_by)
     log_gemm_totals("tinyllama", tot, ("encode", "encode_quant", "decode", "decode_wire"))
     phase_client_fold(sorted(group_counts))
-    gemma_counts = collections.Counter((p.stack, p.l, p.m, p.k)
-                                       for p in gemma_policy.plans.values() if p.compress)
+    gemma_counts = compressed_counts(gemma_policy)
     phase_encode_gemma(sorted(gemma_counts), gemma_counts)
+    granite_tot = phase_granite_kernels(compressed_counts(granite[1]))
     log_chain_order([(2, 300, 260, 1), (1, 517, 1000, 17)])
     flat_counts = flat_group_counts(arch)
     qtot, qbound_by, uniform_ms = phase_quant_kernels(flat_counts)
@@ -2355,67 +2681,14 @@ def main() -> int:
     gemma_kw = {**kw, "batch": 2, "seq": 1024}
     launches = {}
     runs = {}
-    for label, method, mkw, ckw in SLICE_RUNS + GEMMA_RUNS:
-        a, pol, rkw = (gemma, gemma_policy, gemma_kw) if label.startswith("gemma3") else (
-            arch, policy, kw)
-        groups = (len(pol.plans) if method in FLAT_METHODS
-                  else sum(p.compress for p in pol.plans.values()))
-        encoders = n_clients + bool(ckw.get("downlink_compress"))
-        expect = groups * encoders * rounds
-        flash_per_eval = a.n_layers * 4          # FLConfig.eval_batches
-        flash_seen = []
-
-        def after_eval(rnd, _):
-            # eval_every=1: round rnd's eval is the (rnd+1)-th; local training
-            # ran in between, and must have launched no flash
-            flash_seen.append(ops.launch_counts()["flash_attention"])
-            if flash_seen[-1] != flash_per_eval * len(flash_seen):
-                raise AssertionError(f"{label}: {flash_seen[-1]} flash launches after "
-                                     f"{len(flash_seen)} evals, expected "
-                                     f"{flash_per_eval * len(flash_seen)}")
-
-        zeros = CoeffZeros() if label == "gradestc-int8" else contextlib.nullcontext()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        metrics.reset_host_sync_count()
-        with SyncCounter() as syncs, zeros:
-            res = run_slice(method, a, "cuda", progress=after_eval, method_kw=mkw, **rkw, **ckw)
-            torch.cuda.synchronize()
-        if label == "gradestc-int8":
-            log("slice", f"{label}: coeff_quant saw {zeros.calls} A_new, {zeros.zeros()} of "
-                         f"{zeros.values} coefficients exactly +-0 "
-                         f"({zeros.zeros() / zeros.values:.3e})")
-        launches[label] = ops.launch_counts()
-        runs[label] = res
-        check_syncs(label, method, syncs.sites, metrics.host_sync_count(),
-                    rounds + len(res.eval_rounds))
-        ms_round = 1e3 * statistics.mean(res.extra["round_wall_s"][1:])
-        log("slice", f"{label}: ms/round(rounds 1-2) {ms_round:.1f} "
-                     f"uplink bytes {res.ledger.uplink_total:.0f} per-round "
-                     f"{res.ledger.per_round_uplink} downlink bits {res.ledger.downlink_bits} "
-                     f"sum_d {res.extra.get('sum_d')} eval loss {res.eval_loss} "
-                     f"launches {launches[label]} flash after each eval {flash_seen} "
-                     f"max_memory_allocated {torch.cuda.max_memory_allocated()} B "
-                     f"wall {res.wall_s:.1f} s")
-        if not all(math.isfinite(x) for x in res.eval_loss):
-            raise AssertionError(f"{label}: non-finite eval loss {res.eval_loss}")
-        want = {name: expect if name in RUN_KERNELS.get(label, ()) else 0 for name in ops.KERNELS}
-        want["flash_attention"] = flash_per_eval * len(res.eval_rounds)
-        if launches[label] != want or len(flash_seen) != len(res.eval_rounds):
-            raise AssertionError(f"{label}: launch counts {launches[label]}, expected {want}")
+    cuts = {"gemma3": (gemma, gemma_policy, gemma_kw), "granite": (*granite, kw)}
+    for label, method, mkw, ckw in SLICE_RUNS + GEMMA_RUNS + GRANITE_RUNS:
+        a, pol, rkw = cuts.get(label.split("-")[0], (arch, policy, kw))
+        runs[label], launches[label] = slice_run(label, method, mkw, ckw, a, pol, rkw)
     bits = {label: r.ledger.uplink_bits for label, r in runs.items()}
-    for fedavg, a, n_expect in (("fedavg", arch, 104_867_840),
-                                ("gemma3-fedavg", gemma, 165_755_520)):
-        n_params = sum(math.prod(shape) * stack
-                       for shape, stack in model.param_group_shapes(a).values())
-        raw = 32 * n_params * n_clients * rounds
-        if n_params != n_expect or bits[fedavg] != raw:
-            raise AssertionError(f"{fedavg} uplink {bits[fedavg]} bits, params {n_params}, "
-                                 f"expected {raw}")
-        if fedavg == "fedavg":
-            raw_bits = raw
-        elif not bits["gemma3-gradestc"] < raw:
-            raise AssertionError(f"gemma3-gradestc uplink {bits['gemma3-gradestc']} >= {raw}")
+    raw_bits = check_raw_uplink(bits, "", arch, n_clients, rounds)
+    check_raw_uplink(bits, "gemma3-", gemma, n_clients, rounds)
+    check_raw_uplink(bits, "granite-", granite[0], n_clients, rounds)
     if not bits["gradestc-int8"] < bits["gradestc"] < raw_bits:
         raise AssertionError(f"uplink bits do not fall int8 < f32 < fedavg: {bits}")
     sizes = [plan.raw_scalars for plan in policy.plans.values()]
@@ -2429,12 +2702,14 @@ def main() -> int:
             raise AssertionError(f"{label}: uplink {bits[label]} bits, closed form "
                                  f"{per_client * n_clients * rounds}, fedavg {raw_bits}")
     check_ablations(runs, policy, n_clients, rounds, raw_bits)
-    gemma_ratio = bits["gemma3-gradestc"] / bits["gemma3-fedavg"]
     log("slice", "uplink / fedavg: " + ", ".join(
         f"{label} {b / raw_bits:.4f}" for label, b in bits.items()
-        if not label.startswith("gemma3")) + f"; gemma3-gradestc / gemma3-fedavg {gemma_ratio:.4f}")
+        if not label.startswith(("gemma3", "granite"))) + "; " + ", ".join(
+        f"{c}-gradestc / {c}-fedavg {bits[c + '-gradestc'] / bits[c + '-fedavg']:.4f}"
+        for c in ("gemma3", "granite")))
     # ---- 4b. the fused engine beside its loop twin
     fused = phase_fused(arch, policy, gemma, gemma_policy, n_clients)
+    phase_fused(arch, policy, gemma, gemma_policy, n_clients, GRANITE_FUSED_RUNS, granite)
     # ---- 4c. the sharded fused engine, two ranks, beside 4b's fused runs
     phase_sharded(arch, policy, gemma, gemma_policy, fused, n_clients)
     if profile_run:
@@ -2445,28 +2720,16 @@ def main() -> int:
     # ---- 5. card vs CPU at a small config, both through the port
     from repro_torch.configs import get_config
 
-    small = dict(rounds=3, n_clients=3, local_steps=1, batch=2, seq=16, eval_every=2)
+    small = PARITY_SMALL
     parity = [(label, method, mkw, small_arch(), {**small, **ckw})
               for label, method, mkw, ckw in SLICE_RUNS]
     parity += [(f"{method} fused", method, {}, small_arch(), {**small, "engine": "fused"})
                for method in ("gradestc", "fedpaq")]
+    parity += granite_parity()
     parity.append(("gemma3-reduced gradestc", "gradestc", {}, get_config("gemma3-1b").reduced(),
                    {**small, "seq": 32}))
-    for label, method, mkw, a, skw in parity:
-        gpu = run_slice(method, a, "cuda", method_kw=mkw, **skw)
-        # the CPU runs the card's block-local quantizer wire when asked
-        cpu = run_slice(method, a, "cpu", use_pallas=True, method_kw=mkw, **skw)
-        rel = max(abs(x - y) / abs(y) for x, y in zip(gpu.eval_loss, cpu.eval_loss))
-        dif = max(abs(x - y) for x, y in zip(gpu.eval_loss, cpu.eval_loss))
-        log("parity", f"{label}: uplink/round card {gpu.ledger.per_round_uplink} "
-                      f"cpu {cpu.ledger.per_round_uplink}; eval loss card {gpu.eval_loss} "
-                      f"cpu {cpu.eval_loss} max rel diff {rel:.3e} abs {dif:.3e}")
-        if gpu.ledger.per_round_uplink_bits != cpu.ledger.per_round_uplink_bits:
-            raise AssertionError(f"{label}: per-round uplink differs between card and CPU")
-        if method in ATOL_METHODS and dif > QUANT_LOSS_ATOL:
-            raise AssertionError(f"{label}: eval loss differs by {dif:.3e} > {QUANT_LOSS_ATOL}")
-        if method not in ATOL_METHODS and rel > LOSS_RTOL:
-            raise AssertionError(f"{label}: eval loss differs by {rel:.3e} > {LOSS_RTOL}")
+    for run in parity:
+        parity_run(*run)
 
     # ---- 6. the Alg. 1/2 compressor API at one TinyLlama group's shape
     phase_compressor_api(policy.plans["layers/mlp_wout"])
@@ -2519,6 +2782,12 @@ def main() -> int:
                 row[key] = t[key]
         if name == "flash_attention":
             row["per"] = "call at TinyLlama's eval shape (4, 256, 32, 4, 64), causal, f32"
+        if name in granite_tot:
+            g = granite_tot[name]
+            row["at"] = {GRANITE_GROUPS: {key: g[key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "b2b_ms", "b2b_library_ms", "host_us",
+                "err")}}
+            row["launches_granite"] = launches["granite-gradestc"][name]
         rows.append(row)
     print(smi)
     print(json.dumps({"kernels": rows}))

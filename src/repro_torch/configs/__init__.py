@@ -1,7 +1,7 @@
 """Published architecture configs used by the port, by the reference's
-names: ``get_config("tinyllama-1.1b")``, ``get_config("gemma3-1b")``,
-``get_config("llama3-8b")``, ``get_config("yi-34b")`` (the reference's
-dense configs).
+names: the dense ``tinyllama-1.1b``, ``gemma3-1b``, ``llama3-8b`` and
+``yi-34b``, the MoE ``granite-moe-1b-a400m`` and ``dbrx-132b``, and the VLM
+``qwen2-vl-72b`` (``get_config(name)``).
 ``CONFIG.reduced()`` is the smoke-test variant, as in the reference."""
 
 from __future__ import annotations
@@ -18,6 +18,9 @@ _ARCH_MODULES = {
     "gemma3-1b": "gemma3_1b",
     "llama3-8b": "llama3_8b",
     "yi-34b": "yi_34b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "dbrx-132b": "dbrx_132b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
 }
 
 

@@ -82,17 +82,29 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([o0, o1], dim=-1)
 
 
-def bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """32 random bits per element (values in [0, 2^32), int64) of
-    ``key.shape[:-1] + shape``."""
-    shape = tuple(int(s) for s in shape)
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+#: elements per piece of a large normal draw: threefry's int64 temporaries
+#: take some 40 bytes an element, so a tensor of 1e9 values is drawn piece
+#: by piece over its flat index (threefry is counter-based, so the bits of
+#: a piece are those of its indices in one whole draw)
+NORMAL_PIECE = 1 << 26
+
+
+def _bits_flat(key: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """The bits of flat indices ``[start, stop)``: ``(*key.shape[:-1],
+    stop - start)``."""
+    idx = torch.arange(start, stop, dtype=torch.int64, device=key.device)
     lead = key.shape[:-1]
     k0 = key[..., 0].reshape(*lead, 1)
     k1 = key[..., 1].reshape(*lead, 1)
     b0, b1 = _threefry2x32(k0, k1, idx >> 32, idx & _MASK)
-    return (b0 ^ b1).reshape(*lead, *shape)
+    return b0 ^ b1
+
+
+def bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """32 random bits per element (values in [0, 2^32), int64) of
+    ``key.shape[:-1] + shape``."""
+    shape = tuple(int(s) for s in shape)
+    return _bits_flat(key, 0, math.prod(shape)).reshape(*key.shape[:-1], *shape)
 
 
 def _r32(x: float) -> float:
@@ -105,7 +117,15 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: 23 random mantissa bits under a
     fixed exponent, then scaled to ``[minval, maxval)``."""
-    fb = (bits(key, shape) >> 9) | 0x3F800000
+    shape = tuple(int(s) for s in shape)
+    flat = _uniform_flat(key, 0, math.prod(shape), minval, maxval)
+    return flat.reshape(*key.shape[:-1], *shape)
+
+
+def _uniform_flat(key: torch.Tensor, start: int, stop: int, minval: float,
+                  maxval: float) -> torch.Tensor:
+    """``uniform`` at flat indices ``[start, stop)``."""
+    fb = (_bits_flat(key, start, stop) >> 9) | 0x3F800000
     floats = fb.to(torch.int32).view(torch.float32) - 1.0
     lo = _r32(minval)
     span = float(np.float32(maxval) - np.float32(minval))   # float32 subtraction
@@ -211,9 +231,22 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """``jax.random.normal`` in float32."""
-    u = uniform(key, shape, float(np.nextafter(np.float32(-1.0), np.float32(0.0))), 1.0)
-    return _r32(math.sqrt(2.0)) * erfinv_f32(u)
+    """``jax.random.normal`` in float32; above ``NORMAL_PIECE`` elements,
+    drawn piece by piece into the result."""
+    shape = tuple(int(s) for s in shape)
+    n, lead = math.prod(shape), key.shape[:-1]
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    if n <= NORMAL_PIECE:
+        return _normal_flat(key, 0, n, lo).reshape(*lead, *shape)
+    out = torch.empty(*lead, n, dtype=torch.float32, device=key.device)
+    for start in range(0, n, NORMAL_PIECE):
+        stop = min(n, start + NORMAL_PIECE)
+        out[..., start:stop] = _normal_flat(key, start, stop, lo)
+    return out.reshape(*lead, *shape)
+
+
+def _normal_flat(key: torch.Tensor, start: int, stop: int, lo: float) -> torch.Tensor:
+    return _r32(math.sqrt(2.0)) * erfinv_f32(_uniform_flat(key, start, stop, lo, 1.0))
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

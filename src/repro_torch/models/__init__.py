@@ -1,1 +1,1 @@
-"""Dense transformer: config, layers, stack, loss."""
+"""Transformer families (dense, MoE, VLM): config, layers, MoE FFN, stack, loss."""

@@ -3,7 +3,7 @@
 A copy of ``repro/models/config.py::ArchConfig`` (importing the reference's
 would pull in jax through ``repro/models/__init__.py``).  The fields are the
 reference's, so a config built for one package reads the same in the
-other; the port's model implements the dense family.
+other; the port's model implements the dense, MoE and VLM families.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
-"""Shared layers: RMS norm, RoPE, GQA head repetition, attention, SwiGLU.
+"""Shared layers: RMS norm, RoPE and M-RoPE, GQA head repetition,
+attention, SwiGLU.
 
-Port of the parts of ``repro/models/layers.py`` the dense path runs, as
-plain functions on tensors in the reference's layouts: activations
+Port of the parts of ``repro/models/layers.py`` the transformer families
+run, as plain functions on tensors in the reference's layouts: activations
 ``(B, S, H, hd)`` at function boundaries.  Normalization statistics and
 softmax run in f32.  Attention stays plain torch ops, as the reference
 computes it outside any Pallas kernel.
@@ -15,8 +16,26 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "rope_table", "apply_rope", "repeat_kv", "attention",
-           "decode_attention", "decode_attention_gqa", "KVCache", "swiglu"]
+from ..core import prng
+
+__all__ = ["rms_norm", "rope_table", "apply_rope", "apply_mrope", "repeat_kv", "attention",
+           "attention_gqa", "decode_attention", "decode_attention_gqa", "KVCache", "swiglu",
+           "scaled_normal"]
+
+
+def scaled_normal(key: torch.Tensor, shape, dt, mul: float = 1.0,
+                  div: float = 1.0) -> torch.Tensor:
+    """``normal(key, shape) * mul`` or ``/ div`` in ``dt``, with the scalar
+    rounded to that dtype first (the reference's weak-typed scalar).
+    Neither scalar is copied to the device: the factor is a 0-dim host
+    tensor, the divisor is filled on the device (CUDA turns division by a
+    host scalar into a reciprocal multiply, which rounds differently)."""
+    x = prng.normal(key, shape).to(dt)
+    if mul != 1.0:
+        x = x * torch.tensor(mul, dtype=dt)
+    if div != 1.0:
+        x = x / torch.full((), div, dtype=dt, device=x.device)
+    return x
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -28,14 +47,21 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
 def rope_table(positions: torch.Tensor, head_dim: int,
                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables ``(..., S, head_dim//2)`` in f32 for int positions."""
-    half = head_dim // 2
-    f32 = dict(dtype=torch.float32, device=positions.device)
+    ang = positions.float()[..., None] * _rope_freqs(head_dim // 2, theta, positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _rope_freqs(half: int, theta: float, device) -> torch.Tensor:
+    """theta ** (-arange(half) / half) in f32, correctly rounded as the
+    reference's ``powf`` gives it: the power of the f32 operands taken in
+    f64 (an f32 power is an ulp off on some exponents, which a position in
+    the hundreds turns into 1e-5 of angle)."""
+    f32 = dict(dtype=torch.float32, device=device)
     # the divisor lives on the device: CUDA turns division by a host scalar
     # into a reciprocal multiply, which rounds differently from the reference
     exps = -torch.arange(0, half, **f32) / torch.full((), half, **f32)
-    freqs = torch.pow(float(theta), exps)
-    ang = positions.float()[..., None] * freqs
-    return torch.cos(ang), torch.sin(ang)
+    theta32 = float(torch.tensor(theta, dtype=torch.float32))
+    return torch.pow(theta32, exps.double()).float()
 
 
 def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -52,6 +78,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
         positions = positions[None, :]
     cos, sin = rope_table(positions, x.shape[-1], theta)
     return _rotate(x, cos, sin)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[float, float, float] = (0.25, 0.375, 0.375)) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE (reference ``layers.apply_mrope``): the
+    rotary frequencies split into three contiguous sections of
+    ``int(half * 0.25)``, ``int(half * 0.375)`` and the rest, fed by the
+    (temporal, height, width) position streams ``positions3`` (3, B, S).
+    Three equal streams give :func:`apply_rope`."""
+    half = x.shape[-1] // 2
+    s0 = int(half * sections[0])
+    s1 = int(half * sections[1])
+    freqs = _rope_freqs(half, theta, positions3.device)
+    cos_parts, sin_parts = [], []
+    lo = 0
+    for i, hi in enumerate((s0, s0 + s1, half)):
+        ang = positions3[i].float()[..., None] * freqs[lo:hi]
+        cos_parts.append(torch.cos(ang))
+        sin_parts.append(torch.sin(ang))
+        lo = hi
+    return _rotate(x, torch.cat(cos_parts, dim=-1), torch.cat(sin_parts, dim=-1))
 
 
 def repeat_kv(kv: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -98,6 +145,36 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return blk(q, 0)
     outs = [blk(q[:, i:i + q_chunk], i) for i in range(0, Sq, q_chunk)]
     return torch.cat(outs, dim=1)
+
+
+def attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0, q_chunk: int = 0,
+                  softmax_scale: float | None = None) -> torch.Tensor:
+    """Grouped-query attention without repeating K/V (reference
+    ``layers.attention_gqa``, ``ArchConfig.gqa_native``).  q: (B, Sq, H, hd);
+    k, v: (B, Skv, KV, hd), H = KV * G.  q is scaled in its dtype, the
+    ``bqkgd,bskd->bkgqs`` scores and the contraction with V accumulate in
+    f32 from the model-dtype operands (the reference's
+    ``preferred_element_type=f32``), p is cast to V's dtype; ``q_chunk`` > 0
+    walks query blocks (a ragged last one too)."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(hd)
+    scale_t = torch.tensor(scale, dtype=q.dtype)     # 0-dim on the host: no device copy
+    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    kf, vf = k.float(), v.float()
+
+    def blk(qb: torch.Tensor, off: int) -> torch.Tensor:
+        s = torch.einsum("bqkgd,bskd->bkgqs", (qb * scale_t).float(), kf)
+        s = s + _mask_bias(qb.shape[1], Skv, off, causal=causal, window=window,
+                           device=q.device)
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), vf).to(q.dtype)
+
+    if not q_chunk or Sq <= q_chunk:
+        return blk(qg, 0).reshape(B, Sq, H, hd)
+    outs = [blk(qg[:, i:i + q_chunk], i) for i in range(0, Sq, q_chunk)]
+    return torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
 
 
 def decode_mask(S: int, length: torch.Tensor, window: int = 0) -> torch.Tensor:

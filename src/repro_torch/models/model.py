@@ -1,8 +1,11 @@
-"""Model API over the dense stack: forward, chunked cross-entropy loss,
-KV-cache decode.
+"""Family dispatcher: one API over the ported architectures.
 
-Port of ``repro/models/model.py`` for the dense family.  ``batch`` is a dict
-``{"tokens", "labels"}`` of ``(B, S)`` integer tensors.
+Port of ``repro/models/model.py``.  ``batch`` is a dict ``{"tokens",
+"labels"}`` of ``(B, S)`` integer tensors, plus for the VLM family an
+optional ``"vision_embeds"`` (B, P, D) prefix (the qwen2-vl stub) and its
+``"positions"`` (3, B, P + S).  The dense, MoE and VLM families run
+through :mod:`.transformer`; the ssm, hybrid and encdec families are not
+ported (ROADMAP A13) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -14,20 +17,49 @@ import torch
 from . import transformer
 from .config import ArchConfig
 
-__all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
-           "param_group_shapes", "extra_inputs", "count_params"]
+__all__ = ["init_params", "forward", "forward_hidden", "loss_fn", "init_cache", "decode_step",
+           "param_group_shapes", "extra_inputs", "family_module", "count_params"]
 
-init_params = transformer.init_params
-param_group_shapes = transformer.param_group_shapes
-init_cache = transformer.init_cache
-decode_step = transformer.decode_step
+#: families of the reference that the port does not run yet
+_UNPORTED = ("ssm", "hybrid", "encdec")
 
 
-def extra_inputs(cfg: ArchConfig, batch: int, seq: int, dtype=None) -> Dict[str, torch.Tensor]:
-    """Modality-frontend inputs: none for the dense family (the reference's
-    audio frames and vision embeddings belong to enc-dec and VLM models,
-    which are not ported)."""
-    transformer._check_dense(cfg)
+def family_module(cfg: ArchConfig):
+    """The module that implements ``cfg.family``."""
+    if cfg.family in transformer.FAMILIES:
+        return transformer
+    if cfg.family in _UNPORTED:
+        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported "
+                                  "(ROADMAP A13)")
+    raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def init_params(cfg: ArchConfig, key: torch.Tensor):
+    return family_module(cfg).init_params(cfg, key)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, length: int = 0, **kw):
+    return family_module(cfg).init_cache(cfg, batch, max_len, length, **kw)
+
+
+def decode_step(cfg: ArchConfig, params, cache, tokens: torch.Tensor):
+    return family_module(cfg).decode_step(cfg, params, cache, tokens)
+
+
+def param_group_shapes(cfg: ArchConfig):
+    return family_module(cfg).param_group_shapes(cfg)
+
+
+def extra_inputs(cfg: ArchConfig, batch: int, seq: int, dtype=None,
+                 device="cuda") -> Dict[str, torch.Tensor]:
+    """Modality-frontend stubs on ``device`` (the card unless the caller
+    asks for the CPU): the zero (B, vision_tokens, D) vision embeddings of
+    a VLM, nothing for the dense and MoE families."""
+    family_module(cfg)
+    if cfg.family == "vlm" and cfg.vision_tokens:
+        dt = dtype or getattr(torch, cfg.dtype)
+        return {"vision_embeds": torch.zeros((batch, cfg.vision_tokens, cfg.d_model),
+                                             dtype=dt, device=device)}
     return {}
 
 
@@ -35,16 +67,33 @@ def count_params(params) -> int:
     return sum(x.numel() for x in params.values())
 
 
+def _modality_kw(cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The VLM's prefix and its positions, when the batch has them."""
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        return {k: batch[k] for k in ("vision_embeds", "positions") if k in batch}
+    return {}
+
+
 def forward(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    return transformer.forward(cfg, params, batch["tokens"])
+    return family_module(cfg).forward(cfg, params, batch["tokens"], **_modality_kw(cfg, batch))
+
+
+def forward_hidden(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor]):
+    """(hidden (B, S_total, D), head (D, V)) without materializing logits."""
+    return family_module(cfg).forward_hidden(cfg, params, batch["tokens"],
+                                             **_modality_kw(cfg, batch))
 
 
 def loss_fn(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Next-token cross-entropy, mean over tokens, f32.  The vocabulary
     projection runs in sequence chunks of ``cfg.ce_chunk``, as the
-    reference does, so the live logits are (B, ce_chunk, V)."""
-    hidden, head = transformer.forward_hidden(cfg, params, batch["tokens"])
+    reference does, so the live logits are (B, ce_chunk, V).  A vision
+    prefix carries no labels: the hidden states align to the trailing
+    label length."""
+    hidden, head = forward_hidden(cfg, params, batch)
     labels = batch["labels"].long()
+    if hidden.shape[1] != labels.shape[1]:
+        hidden = hidden[:, -labels.shape[1]:]
     B, S, D = hidden.shape
     cs = min(cfg.ce_chunk, S)
     while S % cs:

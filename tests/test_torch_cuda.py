@@ -40,8 +40,10 @@ ledger equals the single-device fused run's and whose eval losses are
 within 1e-5 (fedpaq 5e-4); the KV-cache decode of Gemma3-1B reduced past
 its window against the CPU's within 1e-5 of max |logits|, written in place
 and without flash; the serve driver's ``randint`` and ``categorical``
-draws bit for bit against the CPU's; and a checkpoint of CUDA tensors
-restored onto the card bit for bit.
+draws bit for bit against the CPU's; a checkpoint of CUDA tensors
+restored onto the card bit for bit; and granite-moe-1b-a400m reduced's MoE
+FFN and its gradient under ``torch.func.vmap`` over clients, with no host
+sync, against the CPU's.
 
 Every test here needs a CUDA card and skips without one (the kernels have
 no CPU mode).  The file imports neither jax nor the JAX package, so it runs
@@ -921,3 +923,47 @@ def test_cuda_checkpoint_roundtrip(cuda, tmp_path):
         for k, v in state.slots[i].items():
             assert torch.equal(back["opt"].slots[i][k], v), (i, k)
     assert back["opt"].step.is_cuda and int(back["opt"].step) == 1
+
+
+def test_cuda_moe_ffn_under_vmap_has_no_host_sync(cuda):
+    """granite-moe-1b-a400m reduced's MoE FFN and its weights' gradient
+    under ``torch.func.vmap`` over 3 clients on the card (the fused engine's
+    local training), with torch's sync debug mode set to raise: no host
+    sync (the stable sort, the comparison one-hots and the capacity cumsum
+    stay on the device); each client's output and router gradient within
+    1e-5 of their max |value| of the CPU's (TF32 off), the routing integers
+    equal."""
+    from repro_torch.models import moe
+
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    gen = torch.Generator().manual_seed(0)
+    shapes = {"router": (D, E), "moe_wgate": (E, D, F), "moe_win": (E, D, F),
+              "moe_wout": (E, F, D)}
+    w = {k: torch.randn(s, generator=gen) / math.sqrt(s[-2]) for k, s in shapes.items()}
+    x = torch.randn(3, 2, 24, D, generator=gen)
+    wc, xc = {k: v.to(cuda) for k, v in w.items()}, x.to(cuda)
+
+    def loss(ww, a):
+        return (moe.moe_ffn(cfg, a, ww) ** 2).sum()
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = torch.func.vmap(lambda a: moe.moe_ffn(cfg, a, wc))(xc)
+            grads = torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0))(wc, xc)
+            routes = torch.func.vmap(lambda a: moe.route(cfg, a.reshape(-1, D), wc["router"]))(xc)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for c in range(3):
+        want = moe.moe_ffn(cfg, x[c], w)
+        assert float((out[c].cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+        g = torch.func.grad(loss)(w, x[c])["router"]
+        assert float((grads["router"][c].cpu() - g).abs().max()) <= 1e-5 * float(g.abs().max())
+        for got, ref in zip(routes[1:], moe.route(cfg, x[c].reshape(-1, D), w["router"])[1:]):
+            assert torch.equal(got[c].cpu(), ref)

@@ -180,7 +180,8 @@ def test_new_configs_forward_and_loss(ref_params, name):
 
 def test_model_api():
     """init_cache's layout, extra_inputs and count_params, as the
-    reference's for a dense model; the other families still raise."""
+    reference's for a dense model; an MoE cache is the same; the families
+    not ported still raise."""
     jc, tc = _cfgs("gemma3-1b")
     cache = tmodel.init_cache(tc, 3, 10, length=4, device="cpu")
     assert cache.k.shape == (tc.n_layers, 3, 10, tc.n_kv_heads, tc.hd)
@@ -189,5 +190,8 @@ def test_model_api():
     p = _numpy_params(jc, 0)
     assert tmodel.count_params(params_from_jax(p, "cpu")) == jmodel.count_params(p)
     with pytest.raises(NotImplementedError):
-        tmodel.init_cache(dataclasses.replace(tc, family="moe"), 1, 4, device="cpu")
+        tmodel.init_cache(dataclasses.replace(tc, family="ssm"), 1, 4, device="cpu")
+    moe = tmodel.init_cache(dataclasses.replace(tc, family="moe", n_experts=4), 1, 4,
+                            device="cpu")
+    assert moe.k.shape == (tc.n_layers, 1, 4, tc.n_kv_heads, tc.hd)
 

@@ -72,6 +72,20 @@ def test_normal_within_ulp_bound(seed):
     assert np.abs(a).max() > 4.0            # the sqrt branch was reached
 
 
+def test_normal_in_pieces_equals_one_draw(monkeypatch):
+    """A draw larger than ``NORMAL_PIECE`` (pieces of 1000 here, the last
+    ragged) equals jax's one draw bit for bit, for one key and a batch."""
+    monkeypatch.setattr(prng, "NORMAL_PIECE", 1000)
+    kj = jax.random.PRNGKey(11)
+    a = np.asarray(jax.random.normal(kj, (7, 613), jnp.float32))
+    b = prng.normal(prng.PRNGKey(11, "cpu"), (7, 613)).numpy()
+    np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+    ks = jax.random.split(kj, 3)
+    a = np.asarray(jax.vmap(lambda k: jax.random.normal(k, (2, 1500), jnp.float32))(ks))
+    b = prng.normal(torch.from_numpy(_np(ks)), (2, 1500)).numpy()
+    np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+
 def test_log_and_log1p_match_xla():
     """The port's f32 log/log1p equal XLA's CPU ones bit for bit, over the
     exponent range and the special values."""
