@@ -1,7 +1,9 @@
 """Published architecture configs used by the port, by the reference's
 names: the dense ``tinyllama-1.1b``, ``gemma3-1b``, ``llama3-8b`` and
-``yi-34b``, the MoE ``granite-moe-1b-a400m`` and ``dbrx-132b``, and the VLM
-``qwen2-vl-72b`` (``get_config(name)``).
+``yi-34b``, the MoE ``granite-moe-1b-a400m`` and ``dbrx-132b``, the VLM
+``qwen2-vl-72b``, the ssm ``rwkv6-3b``, the hybrid ``recurrentgemma-9b``
+and the encdec ``whisper-medium`` (``get_config(name)``): every config of
+the reference.
 ``CONFIG.reduced()`` is the smoke-test variant, as in the reference."""
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ _ARCH_MODULES = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "dbrx-132b": "dbrx_132b",
     "qwen2-vl-72b": "qwen2_vl_72b",
+    "rwkv6-3b": "rwkv6_3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "whisper-medium": "whisper_medium",
 }
 
 

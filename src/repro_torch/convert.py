@@ -3,8 +3,10 @@
 ``params_from_jax`` takes the reference's nested dict of arrays (after
 ``jax.device_get``, so plain numpy) and returns the port's flat
 ``{path: tensor}`` dict, keyed by the same ``/``-joined paths the
-compression policy uses (``"layers/attn_wq"``, ``"embed"``, ...).  The
-layouts already agree, so no array is transposed.  A bf16 array (numpy's
+compression policy uses (``"layers/attn_wq"``, ``"embed"``, and nested
+ones such as ``"dec/cross/wq"``).  The layouts already agree, so no array
+is transposed, and each keeps its dtype: an f32 leaf of a bf16 model (an
+MoE router, RG-LRU's ``lru_lambda``) stays f32.  A bf16 array (numpy's
 ``ml_dtypes.bfloat16``) comes across bit for bit, through its 16-bit
 pattern.
 """

@@ -87,6 +87,10 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 #: by piece over its flat index (threefry is counter-based, so the bits of
 #: a piece are those of its indices in one whole draw)
 NORMAL_PIECE = 1 << 26
+#: the piece on the CPU, where one that fits the caches draws ~7x faster
+#: than one pass of each op over a large draw (a 32768 x 256 table: 2.2
+#: against 16.0 s on one thread)
+CPU_NORMAL_PIECE = 1 << 14
 
 
 def _bits_flat(key: torch.Tensor, start: int, stop: int) -> torch.Tensor:
@@ -231,16 +235,18 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """``jax.random.normal`` in float32; above ``NORMAL_PIECE`` elements,
-    drawn piece by piece into the result."""
+    """``jax.random.normal`` in float32; above ``NORMAL_PIECE`` elements
+    (on the CPU, ``CPU_NORMAL_PIECE``), drawn piece by piece into the
+    result."""
     shape = tuple(int(s) for s in shape)
     n, lead = math.prod(shape), key.shape[:-1]
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    if n <= NORMAL_PIECE:
+    piece = CPU_NORMAL_PIECE if key.device.type == "cpu" else NORMAL_PIECE
+    if n <= piece:
         return _normal_flat(key, 0, n, lo).reshape(*lead, *shape)
     out = torch.empty(*lead, n, dtype=torch.float32, device=key.device)
-    for start in range(0, n, NORMAL_PIECE):
-        stop = min(n, start + NORMAL_PIECE)
+    for start in range(0, n, piece):
+        stop = min(n, start + piece)
         out[..., start:stop] = _normal_flat(key, start, stop, lo)
     return out.reshape(*lead, *shape)
 

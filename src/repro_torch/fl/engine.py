@@ -247,9 +247,10 @@ def run_fl_fused(cfg: FLConfig,
             avg[path] = codec.from_wire(means.pop(path), p.shape).to(p.dtype) * cfg.server_lr
         dl_reds = apply_downlink(dl_codecs, dl_state, dl_shared, avg)
         # each average is dropped once applied, so the old and new models and
-        # the averages are never all alive at once
-        new_params = {path: params[path] + avg.pop(path).to(params[path].dtype)
-                      for path in group_paths}
+        # the averages are never all alive at once; a parameter outside the
+        # groups keeps the server's value, as the reference's ``_set_groups``
+        new_params = {path: x + avg.pop(path).to(x.dtype) if path in avg else x
+                      for path, x in params.items()}
         return new_params, pack_round_stats(reds, dl_reds, dev)
 
     def one_round(params, batches, rnd: int):

@@ -337,9 +337,10 @@ def _run_fl_loop(cfg: FLConfig, progress=None) -> FLResult:
         # the broadcast is the server-lr-scaled average, compressed
         dl_reds = apply_downlink(dl_codecs, dl_state, dl_shared, avg)
         # each average is dropped once applied, so the old and new models and
-        # the averages are never all alive at once
-        params = {path: params[path] + avg.pop(path).to(params[path].dtype)
-                  for path in group_paths}
+        # the averages are never all alive at once; a parameter outside the
+        # groups keeps the server's value, as the reference's ``_set_groups``
+        params = {path: x + avg.pop(path).to(x.dtype) if path in avg else x
+                  for path, x in params.items()}
 
         # the single host sync of the round
         acct.consume(host_fetch(pack_round_stats(reds, dl_reds, dev)), ledger, rnd)

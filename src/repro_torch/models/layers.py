@@ -1,8 +1,8 @@
-"""Shared layers: RMS norm, RoPE and M-RoPE, GQA head repetition,
-attention, SwiGLU.
+"""Shared layers: RMS and layer norm, RoPE and M-RoPE, GQA head repetition,
+attention, SwiGLU, the GELU MLP, and the activations that round op by op
+below f32.
 
-Port of the parts of ``repro/models/layers.py`` the transformer families
-run, as plain functions on tensors in the reference's layouts: activations
+Port of ``repro/models/layers.py``, as plain functions on tensors in the reference's layouts: activations
 ``(B, S, H, hd)`` at function boundaries.  Normalization statistics and
 softmax run in f32.  Attention stays plain torch ops, as the reference
 computes it outside any Pallas kernel.
@@ -18,9 +18,9 @@ import torch.nn.functional as F
 
 from ..core import prng
 
-__all__ = ["rms_norm", "rope_table", "apply_rope", "apply_mrope", "repeat_kv", "attention",
+__all__ = ["rms_norm", "layer_norm", "rope_table", "apply_rope", "apply_mrope", "repeat_kv", "attention",
            "attention_gqa", "decode_attention", "decode_attention_gqa", "KVCache", "swiglu",
-           "scaled_normal"]
+           "gelu_mlp", "gelu_tanh", "sigmoid", "scaled_normal"]
 
 
 def scaled_normal(key: torch.Tensor, shape, dt, mul: float = 1.0,
@@ -42,6 +42,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     x32 = x.float()
     rrms = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
     return ((x32 * rrms) * (1.0 + w.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis with the statistics in f32: the
+    reference's mean, then the mean of the squared centred values."""
+    x32 = x.float()
+    c = x32 - x32.mean(-1, keepdim=True)
+    y = c * torch.rsqrt((c * c).mean(-1, keepdim=True) + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
 
 
 def rope_table(positions: torch.Tensor, head_dim: int,
@@ -249,3 +259,24 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         return F.silu(x)
     return x * (1 / (1 + torch.exp(-x)))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """The logistic function; below f32, 1 / (1 + exp(-x)) rounded op by op
+    to x's dtype, as :func:`_silu` rounds."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)``, x * 0.5 (1 + tanh(sqrt(2/pi)
+    (x + 0.044715 x^3))), on the f32 values the reference hands it."""
+    return F.gelu(x.float(), approximate="tanh")
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
+             w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+    """The biased two-layer MLP with the tanh GELU taken in f32."""
+    h = gelu_tanh(x @ w_in + b_in).to(x.dtype)
+    return h @ w_out + b_out

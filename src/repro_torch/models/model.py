@@ -1,11 +1,13 @@
-"""Family dispatcher: one API over the ported architectures.
+"""Family dispatcher: one API over the architectures of the reference.
 
 Port of ``repro/models/model.py``.  ``batch`` is a dict ``{"tokens",
 "labels"}`` of ``(B, S)`` integer tensors, plus for the VLM family an
 optional ``"vision_embeds"`` (B, P, D) prefix (the qwen2-vl stub) and its
-``"positions"`` (3, B, P + S).  The dense, MoE and VLM families run
-through :mod:`.transformer`; the ssm, hybrid and encdec families are not
-ported (ROADMAP A13) and raise ``NotImplementedError``.
+``"positions"`` (3, B, P + S), and for the encdec family optional
+``"audio_frames"`` (B, encoder_seq, D) (the whisper stub; zeros when
+absent).  The dense, MoE and VLM families run through :mod:`.transformer`,
+the ssm family through :mod:`.rwkv6`, the hybrid through :mod:`.rglru` and
+the encdec through :mod:`.encdec`.
 """
 
 from __future__ import annotations
@@ -14,23 +16,21 @@ from typing import Dict
 
 import torch
 
-from . import transformer
+from . import encdec, rglru, rwkv6, transformer
 from .config import ArchConfig
 
 __all__ = ["init_params", "forward", "forward_hidden", "loss_fn", "init_cache", "decode_step",
            "param_group_shapes", "extra_inputs", "family_module", "count_params"]
 
-#: families of the reference that the port does not run yet
-_UNPORTED = ("ssm", "hybrid", "encdec")
+_FAMILY_MODULES = {"ssm": rwkv6, "hybrid": rglru, "encdec": encdec}
 
 
 def family_module(cfg: ArchConfig):
     """The module that implements ``cfg.family``."""
     if cfg.family in transformer.FAMILIES:
         return transformer
-    if cfg.family in _UNPORTED:
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported "
-                                  "(ROADMAP A13)")
+    if cfg.family in _FAMILY_MODULES:
+        return _FAMILY_MODULES[cfg.family]
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -53,11 +53,15 @@ def param_group_shapes(cfg: ArchConfig):
 def extra_inputs(cfg: ArchConfig, batch: int, seq: int, dtype=None,
                  device="cuda") -> Dict[str, torch.Tensor]:
     """Modality-frontend stubs on ``device`` (the card unless the caller
-    asks for the CPU): the zero (B, vision_tokens, D) vision embeddings of
-    a VLM, nothing for the dense and MoE families."""
+    asks for the CPU): the zero (B, encoder_seq, D) audio frames of an
+    encdec model, the zero (B, vision_tokens, D) vision embeddings of a VLM,
+    nothing for the other families."""
     family_module(cfg)
+    dt = dtype or getattr(torch, cfg.dtype)
+    if cfg.family == "encdec":
+        return {"audio_frames": torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                            dtype=dt, device=device)}
     if cfg.family == "vlm" and cfg.vision_tokens:
-        dt = dtype or getattr(torch, cfg.dtype)
         return {"vision_embeds": torch.zeros((batch, cfg.vision_tokens, cfg.d_model),
                                              dtype=dt, device=device)}
     return {}
@@ -68,9 +72,12 @@ def count_params(params) -> int:
 
 
 def _modality_kw(cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The VLM's prefix and its positions, when the batch has them."""
+    """The VLM's prefix and its positions, or the encdec model's audio
+    frames, when the batch has them."""
     if cfg.family == "vlm" and "vision_embeds" in batch:
         return {k: batch[k] for k in ("vision_embeds", "positions") if k in batch}
+    if cfg.family == "encdec" and "audio_frames" in batch:
+        return {"audio_frames": batch["audio_frames"]}
     return {}
 
 

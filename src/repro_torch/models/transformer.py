@@ -19,15 +19,17 @@ which runs under ``torch.no_grad``) goes through the flash kernel
 forward (local training under ``torch.func.grad``, anything on the CPU)
 runs the plain attention, as the reference's ``model.forward`` does:
 ``layers.attention_gqa`` over grouped K/V where ``cfg.gqa_native`` and
-KV < H, else ``layers.attention`` over repeated K/V.  The reference
-defines no backward for its flash kernel, so training stays plain.
+KV < H, else ``layers.attention`` over repeated K/V.  :func:`attend` makes
+that choice for every family's forward.  The reference defines no
+backward for its flash kernel, so training stays plain.
 
 Decode: ``init_cache`` builds the stacked ``(L, B, S, KV, hd)`` KV cache in
 the model dtype and ``decode_step`` runs one token against it, as the
 reference's decode path.  Its attention is the plain single-query
 ``layers.decode_attention`` (the reference's too is outside any Pallas
-kernel); the flash kernel, which attends over equal query and key axes,
-never runs in a decode step.
+kernel); the flash kernel, which takes any query and key lengths (the
+encdec family's cross-attention reads 1500 keys for S queries), runs in
+no decode step.
 """
 
 from __future__ import annotations
@@ -60,8 +62,9 @@ _MOE_KEYS = ("router", "moe_wgate", "moe_win", "moe_wout")
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported (the transformer serves "
-            f"{', '.join(FAMILIES)}; the ssm, hybrid and encdec families are ROADMAP A13)")
+            f"{cfg.name}: family {cfg.family!r} is not a transformer family (this module "
+            f"serves {', '.join(FAMILIES)}; ``model.family_module`` picks the module of "
+            f"every family)")
 
 
 def _layer_keys(cfg: ArchConfig) -> Tuple[str, ...]:
@@ -149,6 +152,22 @@ def _ffn(cfg: ArchConfig, h: torch.Tensor, w: Params) -> torch.Tensor:
     return swiglu(h, w["mlp_wgate"], w["mlp_win"], w["mlp_wout"])
 
 
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+           window: int = 0, q_chunk: int = 0, gqa_native: bool = False) -> torch.Tensor:
+    """The attention of every family's forward.  q: (B, Sq, H, hd); k, v:
+    (B, Skv, KV, hd).  On the card with grad disabled, the flash kernel;
+    else the plain attention: ``attention_gqa`` over grouped K/V where
+    ``gqa_native`` and KV < H, else ``attention`` over K/V repeated to H
+    heads."""
+    if q.is_cuda and not torch.is_grad_enabled():
+        return ops.flash_attention(q, k, v, causal=causal, window=window)
+    H, KV = q.shape[2], k.shape[2]
+    if gqa_native and KV != H:
+        return attention_gqa(q, k, v, causal=causal, window=window, q_chunk=q_chunk)
+    return attention(q, repeat_kv(k, H // KV), repeat_kv(v, H // KV), causal=causal,
+                     window=window, q_chunk=q_chunk)
+
+
 def _layer_fwd(cfg: ArchConfig, x: torch.Tensor, w: Params, positions: torch.Tensor,
                window: int) -> torch.Tensor:
     """One pre-norm block: attention + SwiGLU or MoE FFN."""
@@ -158,13 +177,8 @@ def _layer_fwd(cfg: ArchConfig, x: torch.Tensor, w: Params, positions: torch.Ten
     q = _rotary(cfg, (h @ w["attn_wq"]).reshape(B, S, H, hd), positions)
     k = _rotary(cfg, (h @ w["attn_wk"]).reshape(B, S, KV, hd), positions)
     v = (h @ w["attn_wv"]).reshape(B, S, KV, hd)
-    if q.is_cuda and not torch.is_grad_enabled():
-        o = ops.flash_attention(q, k, v, causal=True, window=window)
-    elif cfg.gqa_native and KV != H:
-        o = attention_gqa(q, k, v, causal=True, window=window, q_chunk=cfg.attn_chunk)
-    else:
-        o = attention(q, repeat_kv(k, H // KV), repeat_kv(v, H // KV), causal=True,
-                      window=window, q_chunk=cfg.attn_chunk)
+    o = attend(q, k, v, causal=True, window=window, q_chunk=cfg.attn_chunk,
+               gqa_native=cfg.gqa_native)
     x = x + o.reshape(B, S, H * hd) @ w["attn_wo"]
     return x + _ffn(cfg, rms_norm(x, w["ln_mlp"], cfg.norm_eps), w)
 

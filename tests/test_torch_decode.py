@@ -180,8 +180,8 @@ def test_new_configs_forward_and_loss(ref_params, name):
 
 def test_model_api():
     """init_cache's layout, extra_inputs and count_params, as the
-    reference's for a dense model; an MoE cache is the same; the families
-    not ported still raise."""
+    reference's for a dense model; an MoE cache is the same; an ssm cache
+    has the reference's RWKVCache shapes and dtypes."""
     jc, tc = _cfgs("gemma3-1b")
     cache = tmodel.init_cache(tc, 3, 10, length=4, device="cpu")
     assert cache.k.shape == (tc.n_layers, 3, 10, tc.n_kv_heads, tc.hd)
@@ -189,8 +189,11 @@ def test_model_api():
     assert tmodel.extra_inputs(tc, 2, 8) == {} == jmodel.extra_inputs(jc, 2, 8)
     p = _numpy_params(jc, 0)
     assert tmodel.count_params(params_from_jax(p, "cpu")) == jmodel.count_params(p)
-    with pytest.raises(NotImplementedError):
-        tmodel.init_cache(dataclasses.replace(tc, family="ssm"), 1, 4, device="cpu")
+    ssm = tmodel.init_cache(dataclasses.replace(tc, family="ssm"), 1, 4, device="cpu")
+    want = jmodel.init_cache(dataclasses.replace(jc, family="ssm"), 1, 4)
+    assert type(ssm).__name__ == type(want).__name__ == "RWKVCache"
+    for got, ref in zip(ssm, want):
+        assert tuple(got.shape) == ref.shape and str(got.dtype) == f"torch.{ref.dtype}"
     moe = tmodel.init_cache(dataclasses.replace(tc, family="moe", n_experts=4), 1, 4,
                             device="cpu")
     assert moe.k.shape == (tc.n_layers, 1, 4, tc.n_kv_heads, tc.hd)

@@ -13,7 +13,8 @@ no token is dropped (the reference's ``test_decode_matches_forward``).
 as they are and stays within 1e-5 of the reference's.  For the three full
 configs, the published fields, ``param_group_shapes`` and ``make_policy``'s
 plans equal the reference's (host only, no weights).  ``family_module``
-serves dense, MoE and VLM and refuses the rest; an MoE tree in bf16 keeps
+serves every family of the reference (the transformer's module refuses the
+ssm, hybrid and encdec ones) and no unknown one; an MoE tree in bf16 keeps
 its f32 router through ``params_from_jax`` and a checkpoint round trip (the
 port's and the reference's files), bit for bit.  (The serve driver on these
 families: ``test_torch_serve_families.py``.)"""
@@ -37,7 +38,7 @@ from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.policy import make_policy as tpolicy  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import encdec, rglru, rwkv6, transformer  # noqa: E402
 from test_torch_decode import (B, _cfgs, _close, _numpy_params, _port_decode,  # noqa: E402
                                _ref_decode, _tokens)
 
@@ -135,9 +136,8 @@ def test_family_module():
     for name in ("tinyllama-1.1b", *NEW):
         assert tmodel.family_module(tget(name)) is transformer
     base = tget("granite-moe-1b-a400m")
-    for family in ("ssm", "hybrid", "encdec"):
-        with pytest.raises(NotImplementedError):
-            tmodel.family_module(dataclasses.replace(base, family=family))
+    for family, module in (("ssm", rwkv6), ("hybrid", rglru), ("encdec", encdec)):
+        assert tmodel.family_module(dataclasses.replace(base, family=family)) is module
         with pytest.raises(NotImplementedError):
             transformer.init_cache(dataclasses.replace(base, family=family), 1, 2, device="cpu")
     with pytest.raises(ValueError):

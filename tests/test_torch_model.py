@@ -92,8 +92,9 @@ def test_param_group_shapes_cover_params(jref):
     for name, (shape, stack) in groups.items():
         want = (stack,) + tuple(shape) if name.startswith("layers/") else tuple(shape)
         assert tuple(tp[name].shape) == want
-    with pytest.raises(NotImplementedError):
-        tmodel.param_group_shapes(dataclasses.replace(ta, family="ssm"))
+    ssm = dataclasses.replace(ta, family="ssm")
+    assert tmodel.param_group_shapes(ssm) == jmodel.param_group_shapes(
+        dataclasses.replace(JArch(**ARCH), family="ssm"))
     moe = tmodel.param_group_shapes(dataclasses.replace(ta, family="moe", n_experts=4,
                                                         experts_per_tok=2))
     assert moe["layers/moe_wgate"] == ((4, 64, 256), 2) and moe["layers/router"] == ((64, 4), 2)
