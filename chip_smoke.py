@@ -186,8 +186,24 @@ script exits non-zero:
    ``launch.train.main`` in sim mode (gradestc, 3 rounds, 4 clients): the
    FLConfig it builds equal to one built here from the reference's fields,
    its ledger and losses equal to a direct ``run_fl`` of that one, and its
-   encode and decode launches; and ``CompileWatcher``: phase 2's build,
-   and no build or load after it.
+   encode and decode launches; ``launch.train.main`` in spmd mode
+   (tinyllama-1.1b reduced, vocab 256, 2 rounds) on the card and on the
+   CPU: its round lines, encode launched once per compressed group and
+   round, flash once per layer and eval, and the card's eval losses within
+   ``SPMD_DRIVER_ATOL`` of the CPU's; and ``CompileWatcher``: phase 2's
+   build, and no build or load after it;
+8. spmd: the production round step (``launch.steps.make_fl_round_step``)
+   at TinyLlama-1.1B's full published width and depth in bf16, one client
+   on a (1, 1) mesh, batch 4 x seq 256, 1 local step, 3 rounds of gradestc
+   and of fedavg, an eval loss after each round: per round the step's
+   CUDA-event ms, kernel launches (encode once per compressed group and
+   round, no other; none for fedavg), host syncs by site (only cuSOLVER's
+   in ``core/rsvd.py``), every compressed group's d_r, and the eval's
+   flash launches (one a layer, no other kernel); peak memory, finite
+   params; then the step at ``slice_arch``'s 2-layer cut in f32 on the
+   card and on the CPU (plain versions) from the same params and state,
+   2 rounds each method: params within ``SPMD_PARAM_RTOL``, d_r and keys
+   equal.
 
 ``python3 chip_smoke.py --turn TREE`` runs phase 1 and then only
 ``coeff_wire_times``, on the port under ``TREE/src`` (``.``, or a parent
@@ -195,8 +211,13 @@ commit unpacked by ``git archive`` into ``build/parent``), so that two trees
 are timed alike in turns within one call; it prints no summary lines.
 
 ``python3 chip_smoke.py --sharded`` runs phases 1, 2 and then only 4c,
-with every twin run in the phase: the one path that a machine with
-several cards adds (NCCL); it prints no summary lines.
+with every twin run in the phase, and phase 8's two-rank twin: the step
+at the 2-layer cut with C = 2 over a world of two ranks (NCCL, a card
+each, where there are two cards; else gloo on the one card) against the
+same two lanes in one process: params within ``SPMD_PARAM_RTOL``, d_r and
+keys equal, per round two collectives a compressed group and one
+all-reduce of the raw groups (fedavg: one).  These are the paths that a
+machine with several cards adds (NCCL); they print no summary lines.
 
 ``python3 chip_smoke.py --drivers`` runs phases 1, 2 and then only 7; it
 prints no summary lines.
@@ -224,6 +245,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -241,12 +263,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (NVIDIA): HBM3 bandwidth, FP32 on the CUDA cores
-# and dense TF32 and BF16 on the tensor cores.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOP_PER_S = 67e12
-PEAK_TF32_FLOP_PER_S = 495e12
-PEAK_BF16_FLOP_PER_S = 989e12
 KERNEL_RTOL = 1e-5        # ||kernel - plain||_F <= KERNEL_RTOL * ||G||_F
 LOSS_RTOL = 1e-5          # eval-loss tolerance of the CPU parity tests
 HALF_MARGIN = 1e-4        # int8 codes may differ by one this close to x.5
@@ -508,14 +524,30 @@ def slice_run(label: str, method: str, mkw, ckw, a, pol, rkw):
     return res, launches
 
 
+@functools.lru_cache(maxsize=None)
+def checkout_hw():
+    """``HW`` (the H100's data-sheet figures) of this checkout's
+    ``src/repro_torch/launch/mesh.py``, loaded from its file: ``--turn``
+    puts another tree's package first on ``sys.path``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_checkout_mesh", ROOT / "src" / "repro_torch" / "launch" / "mesh.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.HW
+
+
 def bound_ms(nbytes: float, flops: float, tf32_flops: float = 0.0, bf16_flops: float = 0.0):
     """The least time for the work: the larger of its bytes over the HBM
     rate and its operations over their unit's peak -- ``flops`` in FP32 on
     the CUDA cores, ``tf32_flops`` and ``bf16_flops`` on the tensor cores
-    (the two units run at once).  Returns (ms, "bytes" or "operations")."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = max(flops / PEAK_FP32_FLOP_PER_S,
-                tf32_flops / PEAK_TF32_FLOP_PER_S + bf16_flops / PEAK_BF16_FLOP_PER_S)
+    (the two units run at once), at the H100 data-sheet peaks of
+    ``repro_torch.launch.mesh.HW``.  Returns (ms, "bytes" or "operations")."""
+    HW = checkout_hw()
+    t_bytes = nbytes / HW.HBM_BW
+    t_ops = max(flops / HW.PEAK_FLOPS_FP32,
+                tf32_flops / HW.PEAK_FLOPS_TF32 + bf16_flops / HW.PEAK_FLOPS_BF16)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -2850,6 +2882,7 @@ def phase_drivers(watcher) -> None:
     for name in REDUCED_WINDOWED:
         reduced_past_window(name)
     train_driver()
+    train_driver_spmd()
     builds, build_s = watcher.since(0)
     later = watcher.since(mark)
     log("drivers", f"CompileWatcher: {builds} library build(s) in {build_s:.2f} s in this "
@@ -2859,6 +2892,323 @@ def phase_drivers(watcher) -> None:
         raise AssertionError(f"CompileWatcher: events {watcher.events}, expected phase 2's "
                              f"load alone")
     log("drivers", f"phase 7 wall {time.perf_counter() - t0:.1f} s")
+
+
+#: phase 8: the production round step (``launch/steps.py``) at TinyLlama-1.1B's
+#: full width and depth in its published bf16, one client (a (1, 1) mesh)
+SPMD_METHODS = ("gradestc", "fedavg")
+SPMD_FULL = dict(rounds=3, batch=4, seq=256)
+SPMD_STEP_KW = dict(lr=0.05, local_steps=1)
+#: card vs CPU (and the two-rank world vs one process) at ``slice_arch``'s
+#: 2-layer cut in f32, TF32 off: every parameter within SPMD_PARAM_RTOL of
+#: the largest |parameter| of its tensor; d_r and the keys equal
+SPMD_PARITY = dict(rounds=2, batch=2, seq=64)
+SPMD_PARAM_RTOL = 2e-5        # card vs CPU measured 2.45e-6 (NVIDIA H100 80GB HBM3)
+#: phase 7's ``train --mode spmd`` (reduced tinyllama, vocab 256) on the card
+#: and on the CPU: printed eval losses within SPMD_DRIVER_ATOL
+SPMD_DRIVER_ARGV = ["--mode", "spmd", "--arch", "tinyllama-1.1b", "--rounds", "2",
+                    "--batch", "2", "--seq", "64"]
+SPMD_DRIVER_ATOL = 2e-4
+
+
+def spmd_inputs(cfg, C: int, rounds: int, batch: int, seq: int, seed: int = 0):
+    """The synthetic task's (C, B, S) batches per round and an eval batch,
+    as numpy, the way ``launch.train``'s spmd mode draws them, its vocab
+    cut to 4096 (``make_task`` builds a V x V float64 table: 8.2 GB and a
+    minute of the host at TinyLlama's 32000; the tokens stay valid ids)."""
+    import numpy as np
+    from repro_torch.data import client_batch_stream, make_task
+
+    task = make_task(vocab=min(cfg.vocab, 4096), n_clients=C, seed=seed)
+    streams = [client_batch_stream(task, c, batch, seq, seed) for c in range(C)]
+    out = []
+    for _ in range(rounds):
+        bs = [next(s) for s in streams]
+        out.append({k: np.stack([b[k] for b in bs]) for k in bs[0]})
+    return out, next(client_batch_stream(task, -1, batch, seq, 77))
+
+
+def spmd_rounds(cfg, mesh, method: str, params, state, rounds, dev: str, evalb=None,
+                count: bool = False):
+    """``make_fl_round_step`` over ``rounds`` on ``dev``.  Per round: the
+    params, state, metrics (host floats, read after the step) and, where
+    ``count``, the step's CUDA-event ms, kernel launches, host syncs by
+    site and collectives; with ``evalb``, the eval loss after the round
+    and the eval's launches."""
+    from repro_torch.core import metrics
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sharding import make_plan
+    from repro_torch.launch.steps import compression_policy_for, make_fl_round_step
+    from repro_torch.models import model
+
+    plan = make_plan(mesh, cfg)
+    step = make_fl_round_step(cfg, mesh, plan, compression_policy_for(cfg, plan),
+                              method=method, **SPMD_STEP_KW)
+    ev = {k: torch.from_numpy(v).to(dev) for k, v in evalb.items()} if evalb else None
+    out = []
+    for b in rounds:
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        row = {}
+        if count:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            metrics.reset_collective_count()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            with SyncCounter() as syncs:
+                start.record()
+                params, state, met = step(params, state, batch)
+                end.record()
+            end.synchronize()
+            row.update(ms=start.elapsed_time(end), launches=ops.launch_counts(),
+                       sites=dict(syncs.sites), collectives=metrics.collective_count())
+        else:
+            params, state, met = step(params, state, batch)
+        row["metrics"] = {k: float(v) for k, v in met.items()}
+        if ev is not None:
+            if count:
+                ops.reset_launch_counts()
+            with torch.no_grad():
+                row["loss"] = float(model.loss_fn(cfg, params, ev))
+            if count:
+                row["eval_launches"] = ops.launch_counts()
+        row["params"], row["state"] = params, state
+        out.append(row)
+    return out
+
+
+def spmd_parity_error(got, want):
+    """(max over tensors of |got - want| / max |want|, d_r equal, keys
+    equal, max |M M^T - M' M'^T|) of one round's results, any devices."""
+    gp, wp = got["params"], want["params"]
+    err = max(float((gp[k].cpu().float() - x.cpu().float()).abs().max())
+              / max(float(x.abs().max()), 1e-30) for k, x in wp.items())
+    same_dr = got["metrics"] == want["metrics"]
+    gs, ws = got["state"], want["state"]
+    keys = all(torch.equal(gs.keys[k].cpu(), ws.keys[k].cpu()) for k in ws.keys)
+    proj = max((float((gs.M[k].cpu() @ gs.M[k].cpu().mT - ws.M[k].cpu() @ ws.M[k].cpu().mT)
+                      .abs().max()) for k in ws.M), default=0.0)
+    return err, same_dr, keys, proj
+
+
+def phase_spmd_parity() -> None:
+    """Phase 8(b): the step at ``slice_arch``'s 2-layer cut (f32) on the
+    card and on the CPU (the plain versions), from the same params and
+    GEState: gradestc and fedavg, SPMD_PARITY rounds."""
+    from repro_torch.core import prng
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.sharding import make_plan
+    from repro_torch.launch.steps import compression_policy_for, make_ge_state
+    from repro_torch.models import model
+
+    cfg = slice_arch()
+    mesh = make_local_mesh((1, 1))
+    policy = compression_policy_for(cfg, make_plan(mesh, cfg))
+    rounds, _ = spmd_inputs(cfg, 1, SPMD_PARITY["rounds"], SPMD_PARITY["batch"],
+                            SPMD_PARITY["seq"])
+    params = model.init_params(cfg, prng.PRNGKey(0, "cpu"))
+    state = make_ge_state(cfg, policy, 1, device="cpu")
+    for method in SPMD_METHODS:
+        t0 = time.perf_counter()
+        cpu = spmd_rounds(cfg, mesh, method, dict(params), state, rounds, "cpu")
+        cpu_s = time.perf_counter() - t0
+        card = spmd_rounds(cfg, mesh, method, {k: x.cuda() for k, x in params.items()},
+                           type(state)(*({k: x.cuda() for k, x in d.items()} for d in state)),
+                           rounds, "cuda")
+        for r, (c, g) in enumerate(zip(card, cpu)):
+            err, same_dr, keys, proj = spmd_parity_error(c, g)
+            log("spmd", f"card vs CPU, 2-layer cut f32, {method} round {r}: params max rel "
+                        f"{err:.3e} (tol {SPMD_PARAM_RTOL}), d_r equal {same_dr}, keys equal "
+                        f"{keys}, bases' projections max |diff| {proj:.3e}; CPU {cpu_s:.1f} s")
+            if not (err <= SPMD_PARAM_RTOL and same_dr and keys):
+                raise AssertionError(f"spmd card vs CPU {method} round {r}: err {err:.3e}, "
+                                     f"d_r {c['metrics']} vs {g['metrics']}, keys {keys}")
+
+
+def phase_spmd() -> dict:
+    """Phase 8: ``make_fl_round_step`` at TinyLlama-1.1B's full published
+    width and depth in bf16, one client, SPMD_FULL, gradestc then fedavg,
+    an eval loss after each round; per round the step's ms, launches, host
+    syncs by site and every compressed group's d_r; peak memory; then the
+    2-layer cut card vs CPU.  Returns the gradestc run's launches of
+    encode (steps) and flash (evals)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.sharding import make_plan
+    from repro_torch.launch.steps import compression_policy_for, make_ge_state
+    from repro_torch.models import model
+
+    t0 = time.perf_counter()
+    cfg = get_config("tinyllama-1.1b")
+    mesh = make_local_mesh((1, 1))
+    plan = make_plan(mesh, cfg)
+    policy = compression_policy_for(cfg, plan)
+    comp = [p for p, lp in policy.plans.items() if lp.compress]
+    rounds, evalb = spmd_inputs(cfg, plan.n_clients, SPMD_FULL["rounds"], SPMD_FULL["batch"],
+                                SPMD_FULL["seq"])
+    params = model.init_params(cfg, prng.PRNGKey(0, "cuda"))
+    log("spmd", f"{cfg.name} {cfg.dtype}, {cfg.n_layers} layers, C {plan.n_clients}, "
+                f"{model.count_params(params)} params, batch {SPMD_FULL['batch']} x seq "
+                f"{SPMD_FULL['seq']}, local_steps {SPMD_STEP_KW['local_steps']}; "
+                f"{len(comp)} compressed groups: " + ", ".join(
+                    f"{p} (L {policy.plans[p].stack}, l {policy.plans[p].l}, m "
+                    f"{policy.plans[p].m}, k {policy.plans[p].k})" for p in comp))
+    totals = {"encode": 0, "flash_attention": 0}
+    for method in SPMD_METHODS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = make_ge_state(cfg, policy, plan.n_clients, device="cuda")
+        rows = spmd_rounds(cfg, mesh, method, dict(params), state, rounds, "cuda", evalb,
+                           count=True)
+        peak = torch.cuda.max_memory_allocated()
+        for r, row in enumerate(rows):
+            launched = {k: n for k, n in row["launches"].items() if n}
+            d_r = {k[4:]: v for k, v in row["metrics"].items() if k.startswith("d_r/")}
+            log("spmd", f"{method} round {r}: step {row['ms']:.1f} ms, eval loss "
+                        f"{row['loss']:.4f}; step launches {launched}, eval launches "
+                        f"{ {k: n for k, n in row['eval_launches'].items() if n} }; syncs "
+                        f"{row['sites']}; d_r {d_r}")
+            want = {"encode": len(comp)} if method == "gradestc" else {}
+            bad_sync = [s for s in row["sites"] if not s.startswith("repro_torch/core/rsvd.py")]
+            flash = row["eval_launches"]["flash_attention"]
+            if (launched != want or bad_sync or flash != cfg.n_layers
+                    or sum(row["eval_launches"].values()) != flash
+                    or (method == "gradestc") != bool(d_r) or row["collectives"]):
+                raise AssertionError(f"spmd {method} round {r}: launches {launched} (want "
+                                     f"{want}), syncs {row['sites']}, flash {flash} per eval "
+                                     f"(want {cfg.n_layers}), d_r {d_r}")
+            if method == "gradestc":
+                totals["encode"] += row["launches"]["encode"]
+                totals["flash_attention"] += flash
+        final = rows[-1]["params"]
+        finite = all(bool(torch.isfinite(x).all()) for x in final.values())
+        moved = any(not torch.equal(final[k], params[k]) for k in comp or policy.plans)
+        steady = [row["ms"] for row in rows[1:]]
+        log("spmd", f"{method}: ms per round {[round(r['ms'], 1) for r in rows]} (steady "
+                    f"mean {sum(steady) / len(steady):.1f}), peak memory {peak} B, eval losses "
+                    f"{[round(r['loss'], 4) for r in rows]}, params finite {finite}, moved "
+                    f"{moved}")
+        if not (finite and moved):
+            raise AssertionError(f"spmd {method}: params finite {finite}, moved {moved}")
+        del rows, state, final
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    phase_spmd_parity()
+    log("spmd", f"phase 8 wall {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
+def spmd_rank(rank: int, methods, params, state, rounds) -> dict:
+    """Phase 8(c) inside one rank of a 2-rank world: the step on
+    ``make_local_mesh((2, 1))`` (this rank's lane; the other's payload by
+    the all-gathers) per method, params and state brought back to the
+    host."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_local_mesh((2, 1))
+    out = {}
+    for method in methods:
+        rows = spmd_rounds(slice_arch(), mesh, method, {k: x.cuda() for k, x in params.items()},
+                           type(state)(*({k: x.cuda() for k, x in d.items()} for d in state)),
+                           rounds, "cuda", count=True)
+        for row in rows:
+            row["params"] = {k: x.cpu() for k, x in row["params"].items()}
+            row["state"] = type(row["state"])(*({k: x.cpu() for k, x in d.items()}
+                                                for d in row["state"]))
+            row["card"] = torch.cuda.current_device()
+        out[method] = rows
+    return out
+
+
+def phase_spmd_sharded() -> None:
+    """Phase 8(c), ``--sharded``: the step at ``slice_arch``'s cut with
+    C = 2 on a world of two ranks (NCCL, a card each, where the machine
+    has two cards; else gloo, both on the one card) against the same two
+    lanes in one process on card 0: params within SPMD_PARAM_RTOL, d_r and
+    keys equal, and per round two collectives a compressed group and one
+    all-reduce of the raw groups (fedavg: one)."""
+    from repro_torch.core import prng
+    from repro_torch.launch.mesh import FLMesh, run_world
+    from repro_torch.launch.sharding import make_plan
+    from repro_torch.launch.steps import compression_policy_for, make_ge_state
+    from repro_torch.models import model
+
+    t0 = time.perf_counter()
+    cfg = slice_arch()
+    logical = FLMesh((2, 1), ("data", "model"))
+    policy = compression_policy_for(cfg, make_plan(logical, cfg))
+    n_comp = sum(lp.compress for lp in policy.plans.values())
+    rounds, _ = spmd_inputs(cfg, 2, SPMD_PARITY["rounds"], SPMD_PARITY["batch"],
+                            SPMD_PARITY["seq"])
+    params = model.init_params(cfg, prng.PRNGKey(0, "cpu"))
+    state = make_ge_state(cfg, policy, 2, device="cpu")
+    twins = {m: spmd_rounds(cfg, logical, m, {k: x.cuda() for k, x in params.items()},
+                            type(state)(*({k: x.cuda() for k, x in d.items()} for d in state)),
+                            rounds, "cuda", count=True) for m in SPMD_METHODS}
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    world = run_world(spmd_rank, 2, backend, args=(SPMD_METHODS, params, state, rounds))
+    for method in SPMD_METHODS:
+        want_coll = 2 * n_comp + 1 if method == "gradestc" else 1
+        for rank in (0, 1):
+            for r, (got, twin) in enumerate(zip(world[rank][method], twins[method])):
+                err, same_dr, keys, proj = spmd_parity_error(got, twin)
+                log("spmd", f"sharded C=2 {backend} rank {rank} (card {got['card']}) {method} "
+                            f"round {r}: {got['ms']:.1f} ms (one process, two lanes: "
+                            f"{twin['ms']:.1f}), collectives {got['collectives']} (want "
+                            f"{want_coll}), params max rel {err:.3e}, d_r equal {same_dr}, "
+                            f"keys equal {keys}, projections {proj:.3e}")
+                if not (err <= SPMD_PARAM_RTOL and same_dr and keys
+                        and got["collectives"] == want_coll and not twin["collectives"]):
+                    raise AssertionError(f"spmd sharded {method} rank {rank} round {r}")
+    log("spmd", f"sharded wall {time.perf_counter() - t0:.1f} s")
+
+
+def train_driver_spmd() -> None:
+    """Phase 7(d): ``launch.train.main`` in spmd mode on the card and on
+    the CPU: the round lines, encode launches once per compressed group
+    and round, flash once per layer and eval, and the card's eval losses
+    within SPMD_DRIVER_ATOL of the CPU's."""
+    import io
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ops.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(SPMD_DRIVER_ARGV + ["--device", dev])
+        lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("round ")]
+        losses = [float(ln.split("eval_loss=")[1].split()[0]) for ln in lines]
+        out[dev] = (rc, lines, losses, ops.launch_counts())
+    rc, lines, losses, counts = out["cuda"]
+    cpu_losses = out["cpu"][2]
+    rounds = int(SPMD_DRIVER_ARGV[SPMD_DRIVER_ARGV.index("--rounds") + 1])
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.sharding import make_plan
+    from repro_torch.launch.steps import compression_policy_for
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(), vocab=256)
+    n_comp = sum(lp.compress for lp in compression_policy_for(
+        cfg, make_plan(make_local_mesh((1, 1)), cfg)).plans.values())
+    diff = max(abs(a - b) for a, b in zip(losses, cpu_losses))
+    launched = {k: n for k, n in counts.items() if n}
+    log("drivers", f"train --mode spmd ({' '.join(SPMD_DRIVER_ARGV[1:])}): rc {rc}, card "
+                   f"{lines}, CPU losses {cpu_losses} (max |diff| {diff:.1e}, tol "
+                   f"{SPMD_DRIVER_ATOL}); launches {launched}")
+    want = {"encode": n_comp * rounds, "flash_attention": cfg.n_layers * rounds}
+    if rc or len(lines) != rounds or diff > SPMD_DRIVER_ATOL or launched != want:
+        raise AssertionError(f"train --mode spmd: rc {rc}, lines {lines}, losses {losses} vs "
+                             f"{cpu_losses}, launches {launched} (want {want})")
 
 
 def main() -> int:
@@ -2896,6 +3246,7 @@ def main() -> int:
     log("build", f"built in {time.perf_counter() - t0:.2f} s into {_build.last_build['dir']}")
     if sharded_only:
         phase_sharded(*slice_and_gemma(), {})
+        phase_spmd_sharded()
         return 0
     if drivers_only:
         phase_drivers(watcher)
@@ -3028,7 +3379,10 @@ def main() -> int:
     # ---- 7. the drivers: serve, train, checkpoint, the build watcher
     phase_drivers(watcher)
 
-    # ---- 8. summary lines
+    # ---- 8. the production round step at TinyLlama-1.1B's full size
+    spmd = phase_spmd()
+
+    # ---- summary lines
     csrc = "src/repro_torch/kernels/csrc/"
     rows = []
     for name, row_name, replaces, run, src in (
@@ -3084,6 +3438,8 @@ def main() -> int:
                     "host_us", "err")}
             if name in ("encode", "decode", "flash_attention"):
                 row[f"launches_{prefix}"] = launches[f"{prefix}-gradestc"][name]
+        if name in spmd:
+            row["launches_spmd"] = spmd[name]
         rows.append(row)
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -3,17 +3,18 @@ names: the dense ``tinyllama-1.1b``, ``gemma3-1b``, ``llama3-8b`` and
 ``yi-34b``, the MoE ``granite-moe-1b-a400m`` and ``dbrx-132b``, the VLM
 ``qwen2-vl-72b``, the ssm ``rwkv6-3b``, the hybrid ``recurrentgemma-9b``
 and the encdec ``whisper-medium`` (``get_config(name)``): every config of
-the reference.
+the reference, and its four input shapes (``get_shape``) with the (arch,
+shape) pairs it skips and why (``is_skipped``, ``SKIPS``).
 ``CONFIG.reduced()`` is the smoke-test variant, as in the reference."""
 
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
-from ..models.config import ArchConfig
+from ..models.config import SHAPES, ArchConfig, InputShape
 
-__all__ = ["get_config", "arch_names"]
+__all__ = ["arch_names", "get_config", "get_shape", "is_skipped", "SHAPES", "SKIPS"]
 
 _ARCH_MODULES = {
     "tinyllama-1.1b": "tinyllama_1_1b",
@@ -28,6 +29,19 @@ _ARCH_MODULES = {
     "whisper-medium": "whisper_medium",
 }
 
+#: (arch, shape) pairs skipped, with the reference's reasons word for word:
+#: long_500k requires a sub-quadratic decode path; pure full-attention
+#: architectures have none.
+SKIPS: Dict[tuple, str] = {
+    ("llama3-8b", "long_500k"): "pure full attention; no sub-quadratic path",
+    ("granite-moe-1b-a400m", "long_500k"): "pure full attention; no sub-quadratic path",
+    ("tinyllama-1.1b", "long_500k"): "pure full attention; no sub-quadratic path",
+    ("dbrx-132b", "long_500k"): "pure full attention; no sub-quadratic path",
+    ("whisper-medium", "long_500k"): "full attention enc-dec; 500k ctx out of family scope",
+    ("qwen2-vl-72b", "long_500k"): "pure full attention; no sub-quadratic path",
+    ("yi-34b", "long_500k"): "pure full attention; no sub-quadratic path",
+}
+
 
 def arch_names() -> List[str]:
     return list(_ARCH_MODULES)
@@ -37,3 +51,11 @@ def get_config(name: str) -> ArchConfig:
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; the port has {sorted(_ARCH_MODULES)}")
     return importlib.import_module(f"{__name__}.{_ARCH_MODULES[name]}").CONFIG
+
+
+def get_shape(name: str) -> InputShape:
+    return SHAPES[name]
+
+
+def is_skipped(arch: str, shape: str) -> str | None:
+    return SKIPS.get((arch, shape))

@@ -9,6 +9,10 @@ is transposed, and each keeps its dtype: an f32 leaf of a bf16 model (an
 MoE router, RG-LRU's ``lru_lambda``) stays f32.  A bf16 array (numpy's
 ``ml_dtypes.bfloat16``) comes across bit for bit, through its 16-bit
 pattern.
+
+``ge_state_from_jax`` turns the reference's ``GEState`` of the production
+round step (its bases ``M`` and threefry ``keys``, as numpy) into the
+port's: keys become int64 tensors holding the two uint32 words.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "ge_state_from_jax"]
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
@@ -38,3 +42,15 @@ def params_from_jax(tree: Any, device="cuda", prefix: str = "") -> Dict[str, tor
         else:
             out[path] = _tensor(np.array(node)).to(device)
     return out
+
+
+def ge_state_from_jax(state: Any, device="cuda"):
+    """The reference's ``launch.steps.GEState`` (``M`` {group: (C, L, l,
+    k)}, ``keys`` {group: (C, L, 2)} uint32; numpy after
+    ``jax.device_get``) as the port's ``GEState`` on ``device``."""
+    from .launch.steps import GEState
+
+    return GEState(
+        M={k: _tensor(np.array(v)).to(device) for k, v in state.M.items()},
+        keys={k: torch.from_numpy(np.array(v).astype(np.int64)).to(device)
+              for k, v in state.keys.items()})

@@ -237,9 +237,12 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
 def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.normal`` in float32; above ``NORMAL_PIECE`` elements
     (on the CPU, ``CPU_NORMAL_PIECE``), drawn piece by piece into the
-    result."""
+    result.  A ``meta`` key gives the shape alone, at once (the dry run
+    counts a full config's parameters so)."""
     shape = tuple(int(s) for s in shape)
     n, lead = math.prod(shape), key.shape[:-1]
+    if key.device.type == "meta":
+        return torch.empty(*lead, *shape, dtype=torch.float32, device="meta")
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     piece = CPU_NORMAL_PIECE if key.device.type == "cpu" else NORMAL_PIECE
     if n <= piece:

@@ -38,8 +38,8 @@ the ranks (``launch/sharding.FLRoundSpecs``): one all-reduce of the
 concatenated reconstruction sums over the real lanes (the compressed
 groups' wire and the raw groups' deltas, f32), divided by ``n_sel`` on
 the device; and one all-gather of every lane's int32 row ``[per-group
-stats | codec state]`` (:func:`_as_i32`), skipped where the rows are
-empty (fedavg and the stateless flat codecs).  The gathered rows, cut to
+stats | codec state]`` (``launch/sharding.as_i32``), skipped where the
+rows are empty (fedavg and the stateless flat codecs).  The gathered rows, cut to
 the real clients, give ``reduce_stats`` the rows the single-device round
 reduces, so the packed stats and the ledger are equal bit for bit; their
 state columns are scattered into every rank's store.  What follows the
@@ -63,18 +63,13 @@ from ..core import metrics, prng
 from ..core.codecs import SERVER_CLIENT_ID, round_base_key
 from ..core.metrics import host_fetch, start_fetch
 from ..launch.mesh import make_fl_mesh, run_world
-from ..launch.sharding import FLRoundSpecs, make_plan
+from ..launch.sharding import FLRoundSpecs, as_i32, from_i32, i32_words, make_plan
 from .compression import (RoundAccountant, apply_downlink, build_codecs, build_downlink_codecs,
                           pack_round_stats)
 from .simulation import (FLConfig, FLResult, _setup_run, default_tiny_arch, make_local_train,
                          select_round_clients)
 
 __all__ = ["run_fl_fused", "run_fl_spawned", "plan_chunks"]
-
-#: the dtypes of the codecs' client state (``init_client_state``), with the
-#: int32 words a value takes in a gathered row (bool rides as 0/1)
-_I32_WORDS = {torch.float32: 1, torch.int64: 2, torch.bool: 1}
-
 
 def plan_chunks(rounds: int, eval_every: int, scan_rounds: int) -> List[Tuple[int, int]]:
     """Partition ``range(rounds)`` into chunks ``[start, end)``.
@@ -96,35 +91,6 @@ def plan_chunks(rounds: int, eval_every: int, scan_rounds: int) -> List[Tuple[in
         chunks.append((start, end))
         start = end
     return chunks
-
-
-def _i32_words(dtype: torch.dtype, shape) -> int:
-    """int32 columns that one client's leaf of ``dtype`` and per-client
-    ``shape`` takes in a gathered row."""
-    if dtype not in _I32_WORDS:
-        raise TypeError(f"codec state dtype {dtype} has no int32 view")
-    return _I32_WORDS[dtype] * math.prod(shape)
-
-
-def _as_i32(leaf: torch.Tensor) -> torch.Tensor:
-    """Lossless ``(C_loc, -1)`` int32 view of a codec-state leaf, so every
-    per-client state update rides *one* all-gather whatever the dtypes:
-    f32 bases and memories by their bits, int64 key words as int32 pairs,
-    bool init flags as 0/1."""
-    _i32_words(leaf.dtype, ())
-    flat = leaf.reshape(leaf.shape[0], -1)
-    if leaf.dtype == torch.bool:
-        return flat.to(torch.int32)
-    return flat.contiguous().view(torch.int32)
-
-
-def _from_i32(col: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
-    """The inverse of :func:`_as_i32`: ``(C, w)`` int32 columns -> a leaf of
-    ``dtype`` and ``shape`` (``C`` first)."""
-    _i32_words(dtype, ())
-    if dtype == torch.bool:
-        return (col != 0).reshape(shape)
-    return col.contiguous().view(dtype).reshape(shape)
 
 
 def _to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -293,7 +259,7 @@ def run_fl_fused(cfg: FLConfig,
         sum_len = off
         # collective 2's row: every codec's stats, then every state leaf
         row_width = (sum(c.client_stats_len for c in codecs.values())
-                     + sum(_i32_words(x.dtype, x.shape[1:]) for st in cstate.values() for x in st))
+                     + sum(i32_words(x.dtype, x.shape[1:]) for st in cstate.values() for x in st))
 
     def sharded_round(params, batches, rnd: int):
         """This rank's lanes of one round, batches {k: (c_loc, steps, B,
@@ -313,7 +279,7 @@ def run_fl_fused(cfg: FLConfig,
                                      keys, delta)
             torch.sum(recon[:n_real], 0, dtype=torch.float32, out=out)
             stats.append(st)
-            states += [_as_i32(x) for x in cst2]
+            states += [as_i32(x) for x in cst2]
         del locals_
         spec.all_reduce_sum(sums)                                       # collective 1
         means = {path: sums[off:off + math.prod(shape)].view(shape) / n_sel_t
@@ -329,8 +295,8 @@ def run_fl_fused(cfg: FLConfig,
         real = sel_dev[rnd]
         for path in codecs:
             for x in cstate[path]:
-                w = _i32_words(x.dtype, x.shape[1:])
-                x.index_copy_(0, real, _from_i32(rows[:, col:col + w], x.dtype,
+                w = i32_words(x.dtype, x.shape[1:])
+                x.index_copy_(0, real, from_i32(rows[:, col:col + w], x.dtype,
                                                  (n_sel,) + tuple(x.shape[1:])))
                 col += w
         return finish(params, means, stats_of)

@@ -6,8 +6,9 @@ wire (``coeff_quant``, ``coeff_dequant``, ``coeff_roundtrip``,
 (``sign_wire``/``sign_unwire``, ``block_quant_wire``/``block_dequant_wire``,
 ``quantize_update``), the unpacked block quantizer (``block_quantize``,
 ``block_dequantize``) and ``flash_attention``.  A tensor on the CPU goes to
-the plain version in ``ref``; a CUDA tensor goes to the hand-written
-kernel, or the call raises.  There is no fall-back on the card: a shape or
+the plain version in ``ref`` (so does a ``meta`` tensor, the dry run's,
+whose plain version only propagates shapes); a CUDA tensor goes to the
+hand-written kernel, or the call raises.  There is no fall-back on the card: a shape or
 dtype the kernel does not take is an error, not a silent plain path.
 
 On the card the coefficient operands are stacks ``(..., L, l, k)``/``(...,
@@ -64,7 +65,7 @@ def reset_launch_counts() -> None:
 
 def _route(*xs: torch.Tensor) -> str:
     kinds = {x.device.type for x in xs}
-    if kinds == {"cpu"}:
+    if kinds == {"cpu"} or kinds == {"meta"}:
         return "cpu"
     if kinds == {"cuda"}:
         return "cuda"

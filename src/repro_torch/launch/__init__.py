@@ -1,5 +1,7 @@
-"""repro_torch.launch -- ranks, meshes and sharding rules, host env, kernel
-build cache and the drivers (``serve``, ``train``).
+"""repro_torch.launch -- ranks, meshes and sharding rules, the production
+round step (``steps``), the dry run (``dryrun``, ``hillclimb``,
+``agg_compare``: the ``meta`` device, no card), host env, kernel build
+cache and the drivers (``serve``, ``train``).
 
 Submodules are exposed lazily (PEP 562), so that ``repro_torch.launch.env``
 can be imported, and ``configure_host()`` called, before the first

@@ -1,11 +1,13 @@
 """Meshes of ``torch.distributed`` ranks, and the worlds that hold them.
 
-Port of ``repro/launch/mesh.py`` as far as the sharded FL engine needs it:
-``make_local_mesh`` and ``make_fl_mesh`` return a ``("data", "model")``
-grid of ranks of shape ``(n, 1)``.  The engine's selected-client axis runs
-over ``"data"``; ``"model"`` stays size 1, because every rank holds the
-whole model.  The production mesh and the TPU hardware table serve only
-the dry run (ROADMAP A13).
+Port of ``repro/launch/mesh.py``.  ``make_local_mesh`` and ``make_fl_mesh``
+return a ``("data", "model")`` grid of ranks of shape ``(n, 1)``: the
+engine's selected-client axis and the production step's clients run over
+``"data"``; ``"model"`` stays size 1, because every rank holds the whole
+model.  ``make_production_mesh`` is the logical (16, 16) or (2, 16, 16)
+mesh of the dry run: it has no process group and nothing executes on it.
+:class:`HW` holds the H100's data-sheet figures that the dry run's
+roofline and ``chip_smoke.py``'s bounds read.
 
 :class:`FLMesh` is not torch's ``DeviceMesh``: ``init_device_mesh``
 creates its sub-groups with the backend's default timeout (half an hour
@@ -32,8 +34,8 @@ from typing import Any, Callable, List, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["FLMesh", "PG_TIMEOUT", "make_local_mesh", "make_fl_mesh", "ranks_available",
-           "run_world"]
+__all__ = ["FLMesh", "HW", "PG_TIMEOUT", "make_production_mesh", "make_local_mesh",
+           "make_fl_mesh", "ranks_available", "run_world"]
 
 #: the timeout of every process group this package creates: a collective
 #: that waits longer on a rank raises instead of hanging the world
@@ -51,6 +53,11 @@ class FLMesh:
         self.mesh_dim_names: Tuple[str, ...] = tuple(axes)
         self.group = group
 
+    @property
+    def chips(self) -> int:
+        """Devices in the grid."""
+        return math.prod(self.shape)
+
     def size(self, axis: str) -> int:
         """Ranks along ``axis``."""
         return self.shape[self.mesh_dim_names.index(axis)]
@@ -62,6 +69,31 @@ class FLMesh:
     def get_local_rank(self, axis: str = "data") -> int:
         group = self.get_group(axis)
         return dist.get_rank(group) if group is not None else 0
+
+
+class HW:
+    """One NVIDIA H100 SXM, from NVIDIA's data sheet (dense rates, no
+    sparsity, at the full 700 W power limit): the roofline of the dry run
+    and the bounds of ``chip_smoke.py``.  ``NVLINK_BW`` is NVLink 4's
+    900 GB/s a card split into its two directions; past one 8-card node a
+    mesh's links are the network's, slower, so the collective term it
+    gives is a lower bound there."""
+
+    PEAK_FLOPS_BF16 = 989e12       # dense BF16 on the tensor cores, per card
+    PEAK_FLOPS_TF32 = 495e12       # dense TF32 on the tensor cores
+    PEAK_FLOPS_FP32 = 67e12        # FP32 on the CUDA cores
+    HBM_BW = 3.35e12               # HBM3 bytes/s per card
+    NVLINK_BW = 450e9              # bytes/s per direction per card
+    HBM_BYTES = 80e9               # 80 GB of HBM3 per card
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> FLMesh:
+    """The dry run's logical mesh: ``(data=16, model=16)``, or ``(pod=2,
+    data=16, model=16)``.  It has no process group; nothing executes on
+    it."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return FLMesh(shape, axes)
 
 
 def ranks_available(backend: str) -> int:

@@ -1,14 +1,23 @@
-"""Sharding rules of the FL round over a mesh of ranks.
+"""Sharding rules of the FL round and the serve steps over a mesh of ranks.
 
-Port of ``repro/launch/sharding.py`` as far as the sharded fused engine
-needs it: :class:`MeshPlan` (which mesh axes enumerate clients and which
-carry tensor parallelism, and the ``huge`` regime), :func:`axis_size`,
-:func:`make_plan`, and :class:`FLRoundSpecs`, the engine's view of the
-mesh -- how many shards the selected clients split over, how the client
-axis is padded, this rank's lanes of a ``(K, C_pad, ...)`` block, and the
-two collectives of a round on the ``"data"`` group, each counted
-(``metrics.collective_count``).  The parameter, batch and cache specs
-serve ``launch/steps.py`` and wait for it (ROADMAP A13).
+Port of ``repro/launch/sharding.py``: :class:`MeshPlan` (which mesh axes
+enumerate clients and which carry tensor parallelism, and the ``huge``
+regime), :func:`axis_size`, :func:`make_plan`; the spec rules
+:func:`param_specs` (roles ``train`` and ``serve``),
+:func:`client_stacked_specs`, :func:`batch_specs` and :func:`cache_specs`;
+and :class:`FLRoundSpecs`, the fused engine's view of the mesh -- how many
+shards the selected clients split over, how the client axis is padded,
+this rank's lanes of a ``(K, C_pad, ...)`` block, and the two collectives
+of a round on the ``"data"`` group, each counted
+(``metrics.collective_count``).
+
+A spec is a tuple with one entry per dim, each entry ``None``, an axis
+name or a tuple of names: the entries of the reference's
+``PartitionSpec``.  The rules are host arithmetic on shapes and equal the
+reference's exactly.  :func:`named` pairs a spec with its mesh; the dry
+run divides a tensor's bytes by its :attr:`Named.shards`.  Executing a
+spec that names ``"model"`` is not ported (ROADMAP A13): the production
+step raises where ``"model"`` has more than one rank.
 
 The collectives take the tensors where they lie: NCCL on the cards; gloo
 on the CPU, and gloo over tensors on a card too (two ranks sharing one
@@ -18,7 +27,8 @@ waits for the device there.
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -28,7 +38,9 @@ from ..models import model
 from ..models.config import ArchConfig
 from .mesh import FLMesh
 
-__all__ = ["MeshPlan", "make_plan", "axis_size", "FLRoundSpecs"]
+__all__ = ["MeshPlan", "make_plan", "param_specs", "client_stacked_specs", "batch_specs",
+           "cache_specs", "named", "Named", "axis_size", "FLRoundSpecs", "I32_WORDS",
+           "i32_words", "as_i32", "from_i32"]
 
 #: per-replica bf16 bytes above which clients can no longer hold replicas on
 #: a 16-chip group (4 copies live during an FL round: global, client, delta,
@@ -101,6 +113,224 @@ class MeshPlan:
 
 def make_plan(mesh: FLMesh, cfg: ArchConfig) -> MeshPlan:
     return MeshPlan(mesh, cfg)
+
+
+class Named(NamedTuple):
+    """A spec on its mesh (the reference's ``NamedSharding``)."""
+
+    mesh: FLMesh
+    spec: Tuple
+
+    @property
+    def shards(self) -> int:
+        """How many pieces the spec cuts a tensor into: the product of the
+        sizes of the axes it names."""
+        n = 1
+        for entry in self.spec:
+            for a in entry if isinstance(entry, tuple) else (entry,):
+                if a is not None:
+                    n *= axis_size(self.mesh, a)
+        return n
+
+
+def named(mesh: FLMesh, spec: Tuple) -> Named:
+    return Named(mesh, tuple(spec))
+
+
+def _one(axes: Tuple[str, ...]):
+    """A spec entry for ``axes``: the name alone, the tuple, or None."""
+    return axes if len(axes) > 1 else (axes[0] if axes else None)
+
+
+# --------------------------------------------------------------------------
+# parameter specs
+# --------------------------------------------------------------------------
+
+def _matrix_spec(plan: MeshPlan, shape: Tuple[int, ...], prefer: int,
+                 tp: Optional[Tuple[str, ...]] = None) -> Tuple:
+    """Spec for a per-layer matrix: shard dim ``prefer`` over ``tp`` axes
+    when divisible, else try the other matrix dims, else replicate."""
+    nd = len(shape)
+    tp = plan.tp_axes if tp is None else tp
+    order = [prefer] + [i for i in range(nd) if i != prefer]
+    for dim in order:
+        if plan.shard_dim(shape[dim], tp):
+            spec = [None] * nd
+            spec[dim] = tp if len(tp) > 1 else tp[0]
+            return tuple(spec)
+    # fall back to model-only when the combined axes don't divide
+    if len(tp) > 1:
+        for dim in order:
+            if plan.shard_dim(shape[dim], ("model",)):
+                spec = [None] * nd
+                spec[dim] = "model"
+                return tuple(spec)
+    return (None,) * nd
+
+
+#: group-name fragment -> preferred shard dim index (within per-layer shape):
+#: column-parallel for input projections, row-parallel for output
+#: projections (megatron pattern); expert axis for MoE banks; vocab for
+#: embeddings.
+_PREFER_RULES = (
+    ("moe_wgate", 0), ("moe_win", 0), ("moe_wout", 0),       # (E, D, F): E
+    ("router", 1),
+    ("attn_wq", 1), ("attn_wk", 1), ("attn_wv", 1), ("attn_wo", 0),
+    ("wq", 1), ("wk", 1), ("wv", 1), ("wo", 0),
+    ("mlp_wgate", 1), ("mlp_win", 1), ("mlp_wout", 0),
+    ("cm_wk", 1), ("cm_wv", 0), ("cm_wr", 1),
+    ("tm_wr", 1), ("tm_wk", 1), ("tm_wv", 1), ("tm_wg", 1), ("tm_wo", 0),
+    ("w_y", 1), ("w_x", 1), ("w_rg", 1), ("w_ig", 1), ("w_o", 0),
+    ("embed", 0), ("head", 1), ("pos", 0),
+)
+
+
+def _prefer_for(name: str, shape: Tuple[int, ...]) -> int:
+    for frag, dim in _PREFER_RULES:
+        if frag in name:
+            return min(dim, len(shape) - 1)
+    return len(shape) - 1
+
+
+_STACK_CONTAINERS = ("/layers/", "/rec/", "/attn/", "/enc/", "/dec/")
+
+
+def _leaf_spec(plan: MeshPlan, path: str, shape: Tuple[int, ...], role: str) -> Tuple:
+    """The spec of one parameter at ``path`` (``/``-led, as the
+    reference's tree paths)."""
+    under_stack = any(seg in path for seg in _STACK_CONTAINERS)
+    if len(shape) <= 1 or (under_stack and len(shape) == 2):
+        # 1-D, or stacked per-layer vectors (L, D): replicate (tiny)
+        return (None,) * len(shape)
+    if under_stack and len(shape) >= 3:
+        per_layer = shape[1:]
+        prefer = _prefer_for(path, per_layer)
+        if role == "serve" and plan.huge and "moe_w" in path:
+            # expert-parallel serving: experts over "data", ffn over "model"
+            inner = [None] * len(per_layer)
+            if plan.shard_dim(per_layer[0], ("data",)):
+                inner[0] = "data"
+            for i in sorted(range(1, len(per_layer)), key=lambda i: -per_layer[i]):
+                if plan.shard_dim(per_layer[i], ("model",)):
+                    inner[i] = "model"
+                    break
+            return (None, *inner)
+        # within-layer "model" on the preferred dim, plus (huge regime,
+        # train only) "data" on the largest other divisible dim: 2-D
+        # sharding of weights, grads and codec state; serving keeps weights
+        # model-only so activations stay batch-sharded over "data"
+        inner = list(_matrix_spec(plan, per_layer, prefer, tp=plan.tp_axes))
+        if plan.second_axes and role == "train":
+            cands = sorted((i for i in range(len(per_layer)) if inner[i] is None),
+                           key=lambda i: -per_layer[i])
+            for i in cands:
+                if plan.shard_dim(per_layer[i], plan.second_axes):
+                    inner[i] = _one(plan.second_axes)
+                    break
+        return (None, *inner)
+    # unstacked tensors (embeddings, heads, positional tables)
+    return _matrix_spec(plan, shape, _prefer_for(path, shape), tp=plan.flat_tp_axes)
+
+
+def param_specs(plan: MeshPlan, params: Dict[str, Any], role: str = "train") -> Dict[str, Tuple]:
+    """``{path: spec}`` for a flat parameter dict (no client axis); the
+    values need only a ``shape``."""
+    return {k: _leaf_spec(plan, "/" + k, tuple(v.shape), role) for k, v in params.items()}
+
+
+def client_stacked_specs(plan: MeshPlan, params: Dict[str, Any]) -> Dict[str, Tuple]:
+    """Specs for per-client replicated params: a leading client axis
+    sharded over ``client_axes``."""
+    cspec = _one(plan.client_axes)
+    return {k: (cspec, *s) for k, s in param_specs(plan, params).items()}
+
+
+# --------------------------------------------------------------------------
+# batch and cache specs
+# --------------------------------------------------------------------------
+
+def batch_specs(plan: MeshPlan, batch: Dict[str, Any], *, client_axis: bool) -> Dict[str, Tuple]:
+    """tokens/labels (B, S) or (C, B, S); modality stubs get matching specs."""
+    out = {}
+    for k, v in batch.items():
+        nd = len(v.shape)
+        if client_axis:
+            out[k] = (_one(plan.client_axes), _one(plan.inner_batch_axes), *([None] * (nd - 2)))
+        else:
+            sb = plan.serve_batch_axes
+            total = math.prod(axis_size(plan.mesh, a) for a in sb)
+            if v.shape[0] % max(total, 1) == 0 and total > 1:
+                out[k] = (_one(sb), *([None] * (nd - 1)))
+            else:
+                out[k] = (None,) * nd
+    return out
+
+
+def cache_specs(plan: MeshPlan, cache: Any, batch: int) -> Any:
+    """KV/recurrent cache specs for serving: a named tuple of the cache's
+    type (every family's cache is one of tensors), a spec a field.
+
+    Batch shards over the serve batch axes when divisible; otherwise
+    (long_500k, batch=1) the *sequence* axis shards there (flash-decoding
+    over sequence shards).  Head/feature trailing dims shard over "model"
+    when divisible.
+    """
+    sb = plan.serve_batch_axes
+    sb_total = math.prod(axis_size(plan.mesh, a) for a in sb)
+    sb_spec = _one(sb)
+
+    def leaf_spec(x) -> Tuple:
+        shape = tuple(x.shape)
+        nd = len(shape)
+        spec = [None] * nd
+        # axes: (L, B, S, KV, hd) / (L, B, S, H, hd) / (L, B, D) /
+        # (L, B, cw-1, R) / (L, B, H, hd, hd)
+        if nd >= 2 and shape[1] == batch:
+            if batch % sb_total == 0 and sb_total > 1:
+                spec[1] = sb_spec
+            elif nd >= 3 and shape[2] % sb_total == 0 and sb_total > 1:
+                spec[2] = sb_spec          # shard sequence instead
+        for dim in range(nd - 1, 1, -1):  # trailing feature dims over model
+            if spec[dim] is None and plan.shard_dim(shape[dim], ("model",)):
+                spec[dim] = "model"
+                break
+        return tuple(spec)
+
+    return type(cache)(*(leaf_spec(x) for x in cache))
+
+
+#: the dtypes of the codecs' client state (``init_client_state``), with the
+#: int32 words a value takes in a gathered row (bool rides as 0/1)
+I32_WORDS = {torch.float32: 1, torch.int64: 2, torch.bool: 1}
+
+
+def i32_words(dtype: torch.dtype, shape) -> int:
+    """int32 columns that one client's leaf of ``dtype`` and per-client
+    ``shape`` takes in a gathered row."""
+    if dtype not in I32_WORDS:
+        raise TypeError(f"codec state dtype {dtype} has no int32 view")
+    return I32_WORDS[dtype] * math.prod(shape)
+
+
+def as_i32(leaf: torch.Tensor) -> torch.Tensor:
+    """Lossless ``(C_loc, -1)`` int32 view of a codec-state leaf, so every
+    per-client state update rides *one* all-gather whatever the dtypes:
+    f32 bases and memories by their bits, int64 key words as int32 pairs,
+    bool init flags as 0/1."""
+    i32_words(leaf.dtype, ())
+    flat = leaf.reshape(leaf.shape[0], -1)
+    if leaf.dtype == torch.bool:
+        return flat.to(torch.int32)
+    return flat.contiguous().view(torch.int32)
+
+
+def from_i32(col: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
+    """The inverse of :func:`as_i32`: ``(C, w)`` int32 columns -> a leaf of
+    ``dtype`` and ``shape`` (``C`` first)."""
+    i32_words(dtype, ())
+    if dtype == torch.bool:
+        return (col != 0).reshape(shape)
+    return col.contiguous().view(dtype).reshape(shape)
 
 
 class FLRoundSpecs:

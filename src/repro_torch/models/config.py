@@ -3,7 +3,8 @@
 A copy of ``repro/models/config.py::ArchConfig`` (importing the reference's
 would pull in jax through ``repro/models/__init__.py``).  The fields are the
 reference's, so a config built for one package reads the same in the
-other; the port's model implements the dense, MoE and VLM families.
+other.  :class:`InputShape` and :data:`SHAPES` are the reference's four
+input shapes, which the dry run and the production step read.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
-__all__ = ["ArchConfig"]
+__all__ = ["ArchConfig", "InputShape", "SHAPES"]
 
 
 @dataclass(frozen=True)
@@ -112,3 +113,19 @@ class ArchConfig:
             dtype="float32",
             remat=False,
         )
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

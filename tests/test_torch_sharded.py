@@ -27,7 +27,8 @@ import numpy as np  # noqa: E402
 from repro_torch.core import metrics  # noqa: E402
 from repro_torch.fl import compression as tcomp  # noqa: E402
 from repro_torch.fl import simulation as tsim  # noqa: E402
-from repro_torch.fl.engine import _as_i32, _from_i32, _i32_words, plan_chunks  # noqa: E402
+from repro_torch.fl.engine import plan_chunks  # noqa: E402
+from repro_torch.launch.sharding import as_i32, from_i32, i32_words  # noqa: E402
 from repro_torch.launch.mesh import FLMesh, run_world  # noqa: E402
 from repro_torch.launch.sharding import FLRoundSpecs, make_plan  # noqa: E402
 from repro_torch.models import model  # noqa: E402
@@ -174,10 +175,10 @@ def _state_leaves():
 
 def test_i32_views_round_trip_every_state_dtype():
     for x in _state_leaves():
-        rows = _as_i32(x)
+        rows = as_i32(x)
         assert rows.dtype == torch.int32
-        assert rows.shape == (x.shape[0], _i32_words(x.dtype, x.shape[1:]))
-        back = _from_i32(rows, x.dtype, x.shape)
+        assert rows.shape == (x.shape[0], i32_words(x.dtype, x.shape[1:]))
+        back = from_i32(rows, x.dtype, x.shape)
         assert back.dtype == x.dtype and back.shape == x.shape
         if x.dtype == torch.float32:            # bit for bit, NaN and -0.0 too
             assert torch.equal(back.view(torch.int32), x.view(torch.int32))
@@ -185,9 +186,9 @@ def test_i32_views_round_trip_every_state_dtype():
             assert torch.equal(back, x)
     for dtype in (torch.int32, torch.float16, torch.bfloat16, torch.float64, torch.uint8):
         with pytest.raises(TypeError):
-            _as_i32(torch.zeros((2, 3), dtype=dtype))
+            as_i32(torch.zeros((2, 3), dtype=dtype))
         with pytest.raises(TypeError):
-            _from_i32(torch.zeros((2, 3), dtype=torch.int32), dtype, (2, 3))
+            from_i32(torch.zeros((2, 3), dtype=torch.int32), dtype, (2, 3))
 
 
 def test_loop_engine_refuses_devices():

@@ -3,10 +3,12 @@
 ``--mode sim`` with 2 rounds, 2 clients and 1 local step: the port's
 ``main`` (``--device cpu``) prints the reference's ledger summary and round
 lines exactly, and its final loss (the ``run_fl`` result each driver
-made) is within 1e-5 relative of the reference's.  ``--mode spmd`` raises
-``NotImplementedError``: the production SPMD step is not ported.  The
-reference's ``main`` runs with its persistent XLA cache switched off, so
-the test writes nothing outside its temp dir."""
+made) is within 1e-5 relative of the reference's.  Sim mode accepts
+spmd mode's flags (``--arch``, ``--batch``, ``--seq``) and ignores them,
+as the reference's does; ``--mode spmd`` is held against the reference's
+in ``test_torch_train_spmd.py``.  The reference's ``main`` runs with its
+persistent XLA cache switched off, so the test writes nothing outside its
+temp dir."""
 
 import contextlib
 import io
@@ -85,15 +87,34 @@ def test_sim_builds_the_reference_flconfig(outputs):
     assert (cfg.lr, cfg.seed, cfg.alpha) == (0.05, 0, None)
 
 
-def test_spmd_raises(monkeypatch):
-    with pytest.raises(NotImplementedError, match="steps.py"):
-        _main(ttrain.main, ["--mode", "spmd", "--device", "cpu"], monkeypatch)
+class _Stop(Exception):
+    """Raised by a stub ``run_fl``: the driver's config is all the test
+    wants."""
 
 
-@pytest.mark.parametrize("flag", ["--arch", "--batch", "--seq"])
-def test_spmd_only_flags_are_rejected(flag, monkeypatch, capsys):
-    """Flags that only spmd mode reads are not accepted, so that none is
-    silently ignored."""
-    with pytest.raises(SystemExit) as e:
-        _main(ttrain.main, ["--mode", "sim", flag, "1", "--device", "cpu"], monkeypatch)
-    assert e.value.code == 2 and flag in capsys.readouterr().err
+def _sim_config(main, mod, argv, monkeypatch):
+    seen = []
+
+    def stop(cfg, progress=None):
+        seen.append(cfg)
+        raise _Stop
+
+    monkeypatch.setattr(mod, "run_fl", stop)
+    for k in KNOBS:
+        monkeypatch.setenv(k, "0")
+    with contextlib.redirect_stdout(io.StringIO()), pytest.raises(_Stop):
+        main(argv)
+    return seen[0]
+
+
+@pytest.mark.parametrize("flag,value", [("--arch", "yi-34b"), ("--batch", "3"), ("--seq", "7")])
+def test_sim_accepts_and_ignores_spmd_flags(flag, value, monkeypatch):
+    """Sim mode takes ``--arch``, ``--batch`` and ``--seq`` and reads none of
+    them, as the reference's does: the FLConfig equals the one built
+    without the flag, and the reference's driver accepts the flag too."""
+    monkeypatch.setattr(jcache, "enable_compilation_cache", lambda cache_dir=None: cache_dir)
+    port = ARGV + ["--device", "cpu"]
+    plain = _sim_config(ttrain.main, tsim, port, monkeypatch)
+    assert _sim_config(ttrain.main, tsim, port + [flag, value], monkeypatch) == plain
+    ref_plain = _sim_config(jtrain.main, jfl, ARGV, monkeypatch)
+    assert _sim_config(jtrain.main, jfl, ARGV + [flag, value], monkeypatch) == ref_plain
